@@ -1,0 +1,115 @@
+"""Serving driver: random-init (seeded) weights, optionally quantised and
+packed, served to a batch of requests by the continuous-batching engine.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch paper-100m \
+        --variant full --quantise babsmax64:n4 --packed --requests 4
+
+Runs on the card by default; ``--device cpu`` runs the plain torch path.
+Loading a checkpoint (``--ckpt``), the KV-format options and the traffic
+replay front end come with later slices.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.core import build_plan
+from repro_torch.models.api import get_family, resolve_device
+from repro_torch.serve.engine import Request, ServeEngine
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="paper-100m")
+    ap.add_argument("--variant", default="small")
+    ap.add_argument("--quantise", default=None,
+                    help="serve with weights quantised to this format spec")
+    ap.add_argument("--packed", action="store_true",
+                    help="with --quantise: keep weights packed (codes — two "
+                         "per byte for ≤16-point codebooks — + block scales) "
+                         "and serve through dequant_matmul instead of "
+                         "materialising dense fake-quant weights")
+    ap.add_argument("--prefill-chunk", type=int, default=8,
+                    help="batched chunked-prefill width")
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--kv-len", type=int, default=128)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--relaxed-admission", action="store_true",
+                    help="admit requests whose prompt + max_new exceeds "
+                         "--kv-len and flag the truncated generations, "
+                         "instead of rejecting them at submit")
+    ap.add_argument("--no-validate", action="store_true",
+                    help="with --packed: skip the load-time integrity pass "
+                         "over the packed checkpoint")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="wall-clock watchdog for the whole run(): on "
+                         "expiry, return resumable partial generations")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (the plain torch path)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights and prompts")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = configs.get_config(args.arch, args.variant)
+    fam = get_family(cfg.family)
+    params = fam.init(cfg, seed=args.seed, device=device)
+    kw = dict(batch_slots=args.slots, kv_len=args.kv_len,
+              prefill_chunk=args.prefill_chunk,
+              strict_admission=not args.relaxed_admission, device=device)
+    if args.quantise:
+        plan = build_plan(params, args.quantise)
+        bits = plan.bits_per_param(params)
+        if args.packed:
+            eng = ServeEngine.from_quantised(
+                cfg, plan.quantise(params), plan,
+                validate=not args.no_validate, **kw)
+            wb = eng.weight_bytes()
+            if wb["packed"] == 0:
+                raise SystemExit(
+                    f"[serve] --packed: no tensor of {cfg.family!r} packs "
+                    f"under format {args.quantise!r} — use a block-scaled "
+                    "codebook format, or drop --packed to serve dense")
+            print(f"[serve] packed {args.quantise} ({bits:.2f} bits/param): "
+                  f"{wb['packed']:,} packed ({wb['codes']:,} codes + "
+                  f"{wb['scales']:,} scales + {wb['codebooks']:,} codebooks)"
+                  f" + {wb['dense']:,} dense bytes resident")
+        else:
+            eng = ServeEngine(cfg, plan.fake_quant(params), **kw)
+            print(f"[serve] weights quantised to {args.quantise} "
+                  f"({bits:.2f} bits/param)")
+    else:
+        eng = ServeEngine(cfg, params, **kw)
+    del params
+    cb = eng.cache_bytes()
+    print(f"[serve] decode cache {cb['total']:,} bytes resident")
+    rng = np.random.default_rng(args.seed)
+    for rid in range(args.requests):
+        prompt = rng.integers(0, cfg.vocab, size=4).tolist()
+        eng.submit(Request(prompt=prompt, max_new_tokens=args.max_new,
+                           rid=rid))
+    t0 = time.monotonic()
+    done = eng.run(deadline_s=args.deadline_s)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.monotonic() - t0
+    n_tok = sum(len(g.tokens) for g in done)
+    n_trunc = sum(g.truncated for g in done)
+    n_failed = sum(g.failed for g in done)
+    print(f"[serve] {len(done)} requests, {n_tok} tokens in {dt:.2f}s "
+          f"({n_tok / max(dt, 1e-9):.1f} tok/s)"
+          + (f", {n_trunc} truncated at the KV budget" if n_trunc else "")
+          + (f", {n_failed} quarantined" if n_failed else ""))
+    for g in done[:4]:
+        print(f"  rid={g.rid} tokens={g.tokens}"
+              + (f" FAILED: {g.fail_reason}" if g.failed else ""))
+    return done
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,266 @@
+"""Shared layers of the decode path: the packed-aware projection API
+(``linear``, ``embed_lookup``), RMSNorm, RoPE, dense multi-token decode
+attention over a KV cache, cache writes and the SwiGLU MLP.
+
+Torch on the operands' device. ``linear`` is the single way a model
+multiplies an activation by a parameter: dense weights take the einsum of
+the call site, ``PackedTensor`` weights the fused ``dequant_matmul`` kernel
+(the CUDA kernel on the card, its plain version on the CPU).
+"""
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.nibble import nibble_row_coords
+from repro_torch.core.tensor_format import PackedTensor
+from repro_torch.kernels import ops as kops
+
+NEG_INF = -1e30
+
+
+@functools.lru_cache(maxsize=None)
+def _spec_orientation(spec: str) -> str:
+    """Classify the weight operand of ``spec``: do its contracting labels
+    lead ("normal", the dequant_matmul codes layout lead+K+out) or trail
+    ("transposed", out+K — contraction along the blocked axis)?"""
+    ins, out = spec.replace(" ", "").split("->")
+    xs, ws = ins.split(",")
+    batch = "".join(c for c in ws if c in xs and c in out)
+    contract = "".join(c for c in ws if c in xs and c not in out)
+    wout = "".join(c for c in ws if c not in xs)
+    if not contract:
+        raise ValueError(f"no contraction in spec {spec!r}")
+    if ws == batch + contract + wout:
+        return "normal"
+    if ws == batch + wout + contract:
+        return "transposed"
+    raise ValueError(f"cannot orient weight subscripts in spec {spec!r}")
+
+
+def linear(x, w, spec: str):
+    """``einsum(spec, x, w)`` where ``w`` may be a :class:`PackedTensor`.
+
+    Packed weights route through ``kernels.ops.dequant_matmul``: x is
+    flattened to (B·T, K) (``x`` is (B, T, *k_dims) with the trailing dims
+    contracting) and the result unflattened to (B, T, *out_shape). The
+    transposed orientation (tied embeddings) needs ``dequant_matmul_t``,
+    which is not ported yet."""
+    if isinstance(w, PackedTensor):
+        if _spec_orientation(spec) == "transposed":
+            raise NotImplementedError(
+                f"linear({spec!r}): the transposed packed matmul "
+                "(dequant_matmul_t, tied embeddings) is not ported yet")
+        B, T = x.shape[0], x.shape[1]
+        y = kops.dequant_matmul(x.reshape(B * T, w.k_dim).contiguous(),
+                                w.codes, w.scales, w.codebook(),
+                                block=w.block, bits=w.bits)
+        return y.reshape(B, T, *w.out_shape)
+    return torch.einsum(spec, x, w.to(x.dtype))
+
+
+def embed_lookup(w, tokens, dtype=None):
+    """Embedding row gather; packed tables dequantise only the gathered rows
+    (codes (V, D) or nibble bytes (V/2, D), scales (V, D//block)).
+    ``dtype``: output dtype (the serving dtype); defaults to the packed
+    tensor's own dtype / the dense table's dtype."""
+    if isinstance(w, PackedTensor):
+        from repro_torch.models.api import torch_dtype
+        out_dt = dtype if dtype is not None else torch_dtype(w.dtype)
+        nib = None
+        c_rows = tokens
+        if w.bits == 4:
+            c_rows, nib = nibble_row_coords(tokens, w.k_dim)
+        c = w.codes[c_rows.long()]                 # (B, T, D) uint8
+        s = w.scales[tokens.long()]                # (B, T, D // block)
+        return kops.dequant_rows(c, s, w.codebook(), block=w.block,
+                                 dtype=out_dt, nibble=nib)
+    out = w[tokens.long()]
+    return out if dtype is None else out.to(dtype)
+
+
+def rms_norm(x, gain, eps: float = 1e-5, plus_one: bool = False):
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    g = gain.float()
+    if plus_one:
+        g = g + 1.0
+    return (y * g).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(hd: int, theta: float, device: torch.device) -> torch.Tensor:
+    """The reference's numpy f32 frequencies, copied to ``device`` once (a
+    copy per call would synchronise the host with the card every layer)."""
+    freqs = 1.0 / (theta ** (np.arange(0, hd, 2, dtype=np.float32) / hd))
+    return torch.from_numpy(np.asarray(freqs, np.float32)).to(device)
+
+
+def rope_tables(positions, hd: int, theta: float):
+    """Rotation tables for ``positions`` (..., T), shaped (..., T, 1, hd) to
+    broadcast over heads: (cos, cos) and (-sin, sin) per half, so that
+    :func:`apply_rope` is ``x * cos + rotate_half(x) * sin``."""
+    ang = positions.float()[..., None] * _rope_freqs(hd, float(theta),
+                                                     positions.device)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    return (torch.cat([cos, cos], dim=-1)[..., None, :],
+            torch.cat([-sin, sin], dim=-1)[..., None, :])
+
+
+def apply_rope(x, cos, sin):
+    """Rotate x (..., T, n, hd) by precomputed ``rope_tables``: the
+    reference's ``[x1 cos - x2 sin, x2 cos + x1 sin]``, bit for bit (the
+    sign is folded into the table)."""
+    x32 = x.float()
+    x1, x2 = torch.chunk(x32, 2, dim=-1)
+    return (x32 * cos + torch.cat([x2, x1], dim=-1) * sin).to(x.dtype)
+
+
+def rope(x, positions, theta: float):
+    """Rotary embedding. x: (..., T, n, hd); positions: (..., T)."""
+    return apply_rope(x, *rope_tables(positions, x.shape[-1], theta))
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+class AttnParams(NamedTuple):
+    wq: torch.Tensor   # (D, H, hd)
+    wk: torch.Tensor   # (D, K, hd)
+    wv: torch.Tensor   # (D, K, hd)
+    wo: torch.Tensor   # (H, hd, D)
+    q_norm: Optional[torch.Tensor] = None  # (hd,)
+    k_norm: Optional[torch.Tensor] = None
+
+
+def qkv_project(x, p: AttnParams, rot, cfg):
+    """q, k, v projections, q and k rotated by ``rot``, the step's
+    ``rope_tables``. The reference takes positions and builds the tables
+    inside; the port builds them once per step."""
+    q = linear(x, p.wq, "btd,dnh->btnh")
+    k = linear(x, p.wk, "btd,dnh->btnh")
+    v = linear(x, p.wv, "btd,dnh->btnh")
+    if cfg.qk_norm and p.q_norm is not None:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    return apply_rope(q, *rot), apply_rope(k, *rot), v
+
+
+def attention_mask(q_positions, S: int, *, window=0, ring=False):
+    """(B, T, 1, 1, S) True where query t of row b may see cache slot s:
+    causal, within ``window`` when > 0, and — for ring caches, whose slot
+    positions are reconstructed from the row's highest written position
+    (``serve.cache.ring_positions``) — written."""
+    if ring:
+        from repro_torch.serve.cache import ring_positions
+        kv = ring_positions(q_positions[:, -1], S)                 # (B, S)
+        mask = kv[:, None, :] <= q_positions[:, :, None]           # causal
+        mask &= q_positions[:, :, None] - kv[:, None, :] < window
+        mask &= kv[:, None, :] >= 0                                # unwritten
+    else:
+        kv = torch.arange(S, device=q_positions.device)
+        mask = kv[None, None, :] <= q_positions[:, :, None]        # causal
+        if window > 0:
+            mask &= q_positions[:, :, None] - kv[None, None, :] < window
+    return mask[:, :, None, None, :]
+
+
+def attend(q, k_cache, v_cache, mask):
+    """Softmax attention of q (B, T, H, hd) over dense caches (B, S, K, hd)
+    under ``attention_mask``: einsum scores, a masked f32 softmax, einsum
+    with v — with the reference's casts (k to q's dtype, scores to f32, p
+    to v's dtype)."""
+    B, T, H, hd = q.shape
+    K = k_cache.shape[2]
+    qg = q.reshape(B, T, K, H // K, hd)
+    s = torch.einsum("btkgh,bskh->btkgs", qg, k_cache.to(qg.dtype))
+    s = (s.float() * hd ** -0.5).masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("btkgs,bskh->btkgh", p.to(v_cache.dtype), v_cache)
+    return out.reshape(B, T, H, hd).to(q.dtype)
+
+
+def chunked_decode_attention(q, k_cache, v_cache, q_positions, *, window=0,
+                             ring=False):
+    """Multi-token decode attention with per-slot positions: a chunk of T
+    query tokens per batch row against that row's dense KV cache.
+    q: (B, T, H, hd); caches (B, S, K, hd); q_positions (B, T) absolute
+    positions (the new tokens' k/v are already written)."""
+    mask = attention_mask(q_positions, k_cache.shape[1], window=window,
+                          ring=ring)
+    return attend(q, k_cache, v_cache, mask)
+
+
+def cache_slots(pos, T: int, S: int, *, ring=False):
+    """Where T new entries per row land in a cache of S slots: rows (B, 1)
+    and slots (B, T). Linear caches write at ``pos .. pos+T-1`` with the
+    start clamped to ``S - T`` (as ``dynamic_update_slice`` clamps in the
+    reference); ring caches at ``(pos + t) % S``."""
+    t = torch.arange(T, dtype=pos.dtype, device=pos.device)
+    if ring:
+        from repro_torch.serve.cache import ring_slots
+        slots = ring_slots(pos[:, None] + t, S)
+    else:
+        slots = pos.clamp(0, S - T)[:, None] + t
+    rows = torch.arange(pos.shape[0], device=pos.device)[:, None]
+    return rows, slots.long()
+
+
+def update_kv_cache(cache, new, pos, *, ring=False):
+    """Write T new entries per batch row at that row's own position, **in
+    place**: cache (B, S, K, hd) is a view into the engine's (L, B, S, K, hd)
+    stack, so the stack itself is updated. new: (B, T, K, hd); pos: (B,).
+    Returns the cache."""
+    rows, slots = cache_slots(pos, new.shape[1], cache.shape[1], ring=ring)
+    cache[rows, slots] = new.to(cache.dtype)
+    return cache
+
+
+class StepGeometry(NamedTuple):
+    """What every layer of one decode step shares, built once per step by
+    :func:`step_geometry`: the rope tables, the cache write coordinates and
+    the attention mask."""
+    rot: tuple            # rope_tables: (cos, sin), each (B, T, 1, hd)
+    rows: torch.Tensor    # (B, 1)
+    slots: torch.Tensor   # (B, T)
+    mask: torch.Tensor    # (B, T, 1, 1, S)
+
+
+def step_geometry(pos, positions, S: int, cfg, *, window=0, ring=False):
+    rows, slots = cache_slots(pos, positions.shape[1], S, ring=ring)
+    return StepGeometry(rope_tables(positions, cfg.hd, cfg.rope_theta),
+                        rows, slots,
+                        attention_mask(positions, S, window=window,
+                                       ring=ring))
+
+
+def attn_decode(x, p: AttnParams, k_cache, v_cache, geo: StepGeometry, cfg):
+    """One attention sub-block of the decode step: project, write the new
+    k/v into the caches in place, attend, project out."""
+    q, k_new, v_new = qkv_project(x, p, geo.rot, cfg)
+    k_cache[geo.rows, geo.slots] = k_new.to(k_cache.dtype)
+    v_cache[geo.rows, geo.slots] = v_new.to(v_cache.dtype)
+    o = attend(q, k_cache, v_cache, geo.mask)
+    return linear(o, p.wo, "btnh,nhd->btd")
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+class MlpParams(NamedTuple):
+    w_gate: torch.Tensor  # (D, F)
+    w_up: torch.Tensor    # (D, F)
+    w_down: torch.Tensor  # (F, D)
+
+
+def swiglu(x, p: MlpParams):
+    g = linear(x, p.w_gate, "btd,df->btf")
+    u = linear(x, p.w_up, "btd,df->btf")
+    h = torch.nn.functional.silu(g) * u
+    return linear(h, p.w_down, "btf,fd->btd")

@@ -1,0 +1,183 @@
+"""Decoder-only transformer LM, decode path: parameter specs, init, the
+grouped KV cache geometry, the ragged ``decode_step`` and the packed-serving
+layouts.
+
+Parameters keep the reference's stacked layout (``params["layers"][key]``
+has a leading L dim), so checkpoints carry across unchanged. The
+reference's ``lax.scan`` over layers is a Python loop here: layer ``l``
+takes views ``[l]`` of the stacked weights (``PackedTensor.layer``) and of
+the (L, B, S, K, hd) cache stacks, and writes its new k/v into those views
+in place. This slice serves homogeneous all-global stacks with dense
+layers; MoE experts, windowed (ring) layer groups, tied embeddings and the
+teacher-forcing ``apply`` come with later slices and raise here.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.tensor_format import PackedTensor
+
+from .api import (ModelConfig, ModelFamily, ParamSpec, init_from_specs,
+                  register_family, ring_prologue, torch_dtype)
+from .layers import (AttnParams, MlpParams, attn_decode, embed_lookup,
+                     linear, rms_norm, step_geometry, swiglu)
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs
+# ---------------------------------------------------------------------------
+
+def layer_param_specs(cfg: ModelConfig, n_layers: int) -> dict:
+    """Specs for the stacked decoder layers."""
+    D, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    L = n_layers
+    pd = cfg.param_dtype
+    p = {
+        "attn_norm": ParamSpec((L, D), ("layers", None), pd),
+        "wq": ParamSpec((L, D, H, hd), ("layers", "fsdp", "heads", None), pd),
+        "wk": ParamSpec((L, D, K, hd), ("layers", "fsdp", "kv_heads", None), pd),
+        "wv": ParamSpec((L, D, K, hd), ("layers", "fsdp", "kv_heads", None), pd),
+        "wo": ParamSpec((L, H, hd, D), ("layers", "heads", None, "fsdp"), pd),
+        "mlp_norm": ParamSpec((L, D), ("layers", None), pd),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = ParamSpec((L, hd), ("layers", None), pd)
+        p["k_norm"] = ParamSpec((L, hd), ("layers", None), pd)
+    if cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers are not ported yet")
+    F = cfg.d_ff
+    p.update({
+        "w_gate": ParamSpec((L, D, F), ("layers", "fsdp", "mlp"), pd),
+        "w_up": ParamSpec((L, D, F), ("layers", "fsdp", "mlp"), pd),
+        "w_down": ParamSpec((L, F, D), ("layers", "mlp", "fsdp"), pd),
+    })
+    return p
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    D = cfg.d_model
+    pd = cfg.param_dtype
+    specs = {
+        "embed": ParamSpec((cfg.vocab, D), ("vocab", "fsdp"), pd),
+        "layers": layer_param_specs(cfg, cfg.n_layers),
+        "final_norm": ParamSpec((D,), (None,), pd),
+    }
+    if not cfg.tie_embeddings:
+        specs["unembed"] = ParamSpec((D, cfg.vocab), ("fsdp", "vocab"), pd)
+    return specs
+
+
+def init(cfg: ModelConfig, *, seed: int = 0, device=None):
+    """Seeded random parameters on ``device`` (default the card)."""
+    return init_from_specs(param_specs(cfg), seed=seed, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Decode path (serving)
+# ---------------------------------------------------------------------------
+
+def cache_spec(cfg: ModelConfig, batch_size: int, kv_len: int,
+               slack: int = 0, windowed: bool = True):
+    """Self-attention cache geometry (``serve.cache.CacheSpec``)."""
+    from repro_torch.serve.cache import build_cache_spec
+    return build_cache_spec(
+        cfg.window_pattern(), batch_size, kv_len, slack=slack,
+        kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+        dtype=cfg.kv_dtype or cfg.dtype, windowed=windowed,
+        formats=cfg.kv_format)
+
+
+def decode_state_specs(cfg: ModelConfig, batch_size: int, kv_len: int,
+                       slack: int = 0, windowed: bool = True) -> dict:
+    """Grouped KV cache specs plus the per-slot positions ``pos`` (B,)."""
+    spec = cache_spec(cfg, batch_size, kv_len, slack, windowed)
+    return {
+        **spec.state_specs(),
+        "pos": ParamSpec((batch_size,), ("batch",), "int32"),
+    }
+
+
+def _layer(lp: dict, i: int) -> dict:
+    """Layer ``i``'s parameters as views of the stacked leaves."""
+    return {k: (v.layer(i) if isinstance(v, PackedTensor) else v[i])
+            for k, v in lp.items()}
+
+
+def decode_step(params, state, batch, cfg: ModelConfig):
+    """Chunked decode step with per-slot positions (the ragged protocol).
+
+    batch: {"tokens": (B, T) int, "t_valid": optional (B,) int32, "reset":
+    optional (B,) bool}. Each row writes its T new k/v at its own
+    ``state["pos"][b]`` and advances by ``t_valid[b]`` (default T); a set
+    ``reset`` bit zeroes that slot's KV rows and position first
+    (``ring_prologue``). The cache stacks in ``state`` are updated **in
+    place**; the returned state holds the same tensors and the new ``pos``.
+    Returns (logits (B, T, V) float32, state)."""
+    from repro_torch.serve.cache import layer_groups, parse_kv_formats
+    tokens = batch["tokens"]
+    B, T = tokens.shape
+    dt = torch_dtype(cfg.dtype)
+    groups = layer_groups(cfg.window_pattern())
+    if len(groups) != 1 or groups[0][0] != 0:
+        raise NotImplementedError(
+            f"{cfg.name}: windowed (ring) layer groups are not ported yet; "
+            "this slice serves all-global attention stacks")
+    fmts = parse_kv_formats(cfg.kv_format, len(groups), cfg.hd)
+    pos, adv, _, st = ring_prologue(state, batch, len(groups), formats=fmts)
+    x = embed_lookup(params["embed"], tokens, dtype=dt)
+    positions = pos[:, None] + torch.arange(T, dtype=torch.int32,
+                                            device=tokens.device)[None]
+    k_all, v_all = st["k0"], st["v0"]
+    # rope tables, cache write slots and the mask are the same for every
+    # layer: built once per step
+    geo = step_geometry(pos, positions, k_all.shape[2], cfg)
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        attn = AttnParams(lp["wq"], lp["wk"], lp["wv"], lp["wo"],
+                          lp.get("q_norm"), lp.get("k_norm"))
+        x = x + attn_decode(h, attn, k_all[i], v_all[i], geo, cfg)
+        h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+        x = x + swiglu(h, MlpParams(lp["w_gate"], lp["w_up"], lp["w_down"]))
+    new_state = {"k0": k_all, "v0": v_all, "pos": pos + adv}
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _unembed(x, params, cfg).float(), new_state
+
+
+def _unembed(x, params, cfg: ModelConfig):
+    if cfg.tie_embeddings:
+        return linear(x, params["embed"], "btd,vd->btv")
+    return linear(x, params["unembed"], "btd,dv->btv")
+
+
+def pack_layouts(cfg: ModelConfig) -> dict:
+    """Matmul layouts for serving from packed quantised weights: tensor path
+    → (n_lead, n_contract) — the reference's declarations for a dense
+    stack. The embedding table packs too (rows gather-dequantise through
+    ``embed_lookup``)."""
+    lay = {
+        "['layers']['wq']": (1, 1),
+        "['layers']['wk']": (1, 1),
+        "['layers']['wv']": (1, 1),
+        "['layers']['wo']": (1, 2),
+        "['layers']['w_gate']": (1, 1),
+        "['layers']['w_up']": (1, 1),
+        "['layers']['w_down']": (1, 1),
+        "['embed']": (0, 1),
+    }
+    if not cfg.tie_embeddings:
+        lay["['unembed']"] = (0, 1)
+    return lay
+
+
+register_family(ModelFamily(
+    name="transformer",
+    param_specs=param_specs,
+    init=init,
+    decode_state_specs=decode_state_specs,
+    decode_step=decode_step,
+    supports_ragged=True,
+    cache_spec=cache_spec,
+    pack_layouts=pack_layouts,
+))

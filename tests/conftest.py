@@ -45,3 +45,7 @@ def pytest_configure(config):
         "markers",
         "slow: tests taking >10s (model-family train loops); "
         "deselect with -m 'not slow'")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA kernels have "
+        "no CPU mode); skips elsewhere")
