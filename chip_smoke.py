@@ -5,23 +5,38 @@
 Phases, each printed as JSON lines:
 
 1. device: the card's name and power limit (nvidia-smi), then the build of
-   every CUDA kernel of the serving path from ``src/repro_torch`` sources.
-2. kernel: ``dequant_matmul`` against its plain torch version on the card at
-   every projection shape of paper-100m and deepseek-7b (M = 1, 4, 32 at
-   4 bits, one 8-bit shape, one lead-dim case), with the kernel's, the plain
-   version's and one ``torch.matmul`` call's times beside the byte bound.
+   every CUDA kernel from ``src/repro_torch`` sources (one nvcc per source,
+   in parallel), with registers and spills per library.
+2. kernel: each kernel against its plain torch version on the card, with the
+   kernel's, the plain version's and one library call's times beside the
+   least time the card could take:
+   ``dequant_matmul`` at every projection shape of paper-100m, deepseek-7b
+   and gemma3-1b (M = 1, 4, 32 at 4 bits, one 8-bit shape, one lead-dim
+   case); ``dequant_matmul_t`` at gemma3-1b's tied unembed (262144 x 1152,
+   M = 1, 4, 32, and 8-bit); ``block_quant`` at hd 256 and 64, rows 4, 32
+   and 256, q8 and q4 (bitwise); ``decode_attention_quant`` at gemma3-1b's
+   shapes (ring S = 520 and linear S = 1032, T = 1 and 8, q8 and q4, a
+   wrapped ring).
 3. serve paper-100m full: babsmax64:n4 packed, seeded weights, 4 slots x 4
-   requests; launch count, resident bytes, and card-vs-CPU logits/tokens.
+   requests; launch counts, resident bytes, and card-vs-CPU logits/tokens.
 4. serve deepseek-7b full: the same at kv_len 256, weights initialised,
    quantised and packed on the card.
-5. the kernels summary line, then ``{"ok": true, "device": ...}``.
+5. serve gemma3-1b full with a q8 KV cache (tied embeddings, 5:1 ring
+   groups): 4 requests, then one 600-token prompt that wraps the local
+   groups' 520-slot rings, held step by step to the same request served
+   with full-length caches (no ring); launch counts of all four kernels,
+   resident weight and KV bytes, card-vs-CPU logits. Then the same 4
+   requests with a q4 cache.
+6. the kernels summary line, then ``{"ok": true, "device": ...}``.
 
-Any failed check raises and the script exits non-zero without the last
-line. It exits non-zero at once when no CUDA device is present.
+Every count of kernel launches is set to 0 just before a serve run and read
+just after it. Any failed check raises and the script exits non-zero without
+the last line. It exits non-zero at once when no CUDA device is present.
 """
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import re
 import subprocess
@@ -36,8 +51,27 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 BF16_FLOPS_PER_S = 989e12    # H100 SXM dense bf16 tensor-core peak
 SPIN_CYCLES = 2_000_000      # about 1 ms at the H100's clock
 SPEC = "babsmax64:n4"
-KERNEL_SOURCE = "src/repro_torch/kernels/csrc/dequant_matmul.cu"
-KERNEL_REPLACES = "src/repro/kernels/dequant_matmul/dequant_matmul.py:125"
+CSRC = "src/repro_torch/kernels/csrc/"
+REF = "src/repro/kernels/"
+# kernel -> its wrapper module (which counts launches), source, TPU kernel
+KERNELS = {
+    "dequant_matmul": dict(
+        module="repro_torch.kernels.dequant_matmul.dequant_matmul",
+        source=CSRC + "dequant_matmul.cu",
+        replaces=REF + "dequant_matmul/dequant_matmul.py:171"),
+    "dequant_matmul_t": dict(
+        module="repro_torch.kernels.dequant_matmul.dequant_matmul_t",
+        source=CSRC + "dequant_matmul_t.cu",
+        replaces=REF + "dequant_matmul/dequant_matmul.py:259"),
+    "block_quant": dict(
+        module="repro_torch.kernels.block_quant.block_quant",
+        source=CSRC + "block_quant.cu",
+        replaces=REF + "block_quant/block_quant.py:53"),
+    "decode_attention_quant": dict(
+        module="repro_torch.kernels.decode_attention.decode_attention",
+        source=CSRC + "decode_attention.cu",
+        replaces=REF + "decode_attention/decode_attention.py:125"),
+}
 
 # (K, N) of every projection on the decode path, with launches per step
 PROJECTIONS = {
@@ -49,13 +83,29 @@ PROJECTIONS = {
                     ((4096, 11008), 60, "w_gate+w_up"),
                     ((11008, 4096), 30, "w_down"),
                     ((4096, 102400), 1, "unembed")],
+    "gemma3-1b": [((1152, 1024), 26, "wq"), ((1152, 256), 52, "wk+wv"),
+                  ((1024, 1152), 26, "wo"), ((1152, 6912), 52,
+                                              "w_gate+w_up"),
+                  ((6912, 1152), 26, "w_down")],
 }
-LAUNCHES_PER_STEP = {"paper-100m": 85, "deepseek-7b": 211}
+# launches per decode step of each kernel (the design's numbers): gemma3-1b
+# runs 7 projections per layer, the tied unembed once, block_quant for k and
+# v and decode_attention_quant once per layer (26 layers)
+LAUNCHES_PER_STEP = {
+    "paper-100m": {"dequant_matmul": 85},
+    "deepseek-7b": {"dequant_matmul": 211},
+    "gemma3-1b": {"dequant_matmul": 182, "dequant_matmul_t": 1,
+                  "block_quant": 52, "decode_attention_quant": 26},
+}
+UNEMBED_T = (262144, 1152)        # gemma3-1b's tied table (V, D)
+KV_BYTES = {"q8": 32_381_440, "q4": 16_439_808}   # gemma3-1b, 4 x 1024
 WEIGHT_BYTES = {
     "paper-100m": dict(total=66_924_096, codes=62_914_560, scales=3_932_160,
                        codebooks=576, dense=76_800),
     "deepseek-7b": dict(total=3_671_999_040, codes=3_455_057_920,
                         scales=215_941_120, codebooks=576, dense=999_424),
+    "gemma3-1b": dict(total=531_416_064, codes=499_875_840,
+                      scales=31_242_240, codebooks=512, dense=297_472),
 }
 
 
@@ -89,23 +139,41 @@ def time_ms(fn, flush, reps=20):
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
+def bound_ms(nbytes, flops):
+    """Least time of the card for this work: bytes over the HBM rate or
+    operations over the bf16 tensor-core peak, whichever is larger."""
+    return max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S) * 1e3
+
+
+def bound_by(nbytes, flops):
+    return "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S \
+        else "operations"
+
+
+def wrappers():
+    """Each kernel's wrapper module, the holder of its launch count."""
+    return {name: importlib.import_module(k["module"])
+            for name, k in KERNELS.items()}
+
+
 # ---------------------------------------------------------------------------
-# Phase 2: the kernel against its plain version
+# Phase 2: each kernel against its plain version
 
 
-def kernel_case(dqm, ref, dev, gen, cb, flush, K, N, M, bits, lead=None):
+def matmul_case(mods, dev, gen, cb, flush, K, N, M, bits, lead=None):
+    from repro_torch.kernels.dequant_matmul import ref
     block = 64
     pre = () if lead is None else (lead,)
     x = torch.randn(pre + (M, K), generator=gen, device=dev).to(torch.bfloat16)
-    n_codes = cb.numel()
-    codes = torch.randint(0, n_codes, pre + (K, N), generator=gen,
+    codes = torch.randint(0, cb.numel(), pre + (K, N), generator=gen,
                           device=dev, dtype=torch.int32).to(torch.uint8)
     if bits == 4:
         from repro_torch.core.nibble import pack_nibbles
         codes = pack_nibbles(codes).contiguous()
     scales = (torch.rand(pre + (K, N // block), generator=gen, device=dev)
               * 0.05 + 0.01).to(torch.bfloat16)
-    y = dqm.dequant_matmul_cuda(x, codes, scales, cb, block, bits)
+    kern = mods["dequant_matmul"].dequant_matmul_cuda
+    y = kern(x, codes, scales, cb, block, bits)
     y_plain = ref.dequant_matmul_ref(x, codes, scales, cb, block, bits)
     torch.cuda.synchronize()
     scale = float(y_plain.float().abs().max())
@@ -119,10 +187,9 @@ def kernel_case(dqm, ref, dev, gen, cb, flush, K, N, M, bits, lead=None):
     flops = 2 * E * M * K * N
     out = dict(
         K=K, N=N, M=M, bits=bits, lead=lead, bytes=nbytes, flops=flops,
-        bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S)
-        * 1e3,
-        kernel_ms=time_ms(lambda: dqm.dequant_matmul_cuda(
-            x, codes, scales, cb, block, bits), flush),
+        bound_ms=bound_ms(nbytes, flops),
+        kernel_ms=time_ms(lambda: kern(x, codes, scales, cb, block, bits),
+                          flush),
         plain_ms=time_ms(lambda: ref.dequant_matmul_ref(
             x, codes, scales, cb, block, bits), flush),
         library_ms=time_ms(lambda: torch.matmul(x, w), flush),
@@ -131,43 +198,209 @@ def kernel_case(dqm, ref, dev, gen, cb, flush, K, N, M, bits, lead=None):
     return out
 
 
-def kernel_phase(dev):
-    from repro_torch.core.registry import parse_format
-    from repro_torch.kernels.dequant_matmul import dequant_matmul as dqm
+def matmul_t_case(mods, dev, gen, cb, flush, V, D, M, bits):
+    """The tied unembed: x (M, D) @ dequant(table (V, D)).T, with the
+    library call ``torch.matmul`` against the pre-dequantised bf16 table."""
+    from repro_torch.core.nibble import pack_nibbles
     from repro_torch.kernels.dequant_matmul import ref
+    block = 64
+    x = torch.randn(M, D, generator=gen, device=dev).to(torch.bfloat16)
+    codes = torch.randint(0, cb.numel(), (V, D), generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.uint8)
+    if bits == 4:
+        codes = pack_nibbles(codes).contiguous()   # interleaved along V
+    scales = (torch.rand(V, D // block, generator=gen, device=dev) * 0.05
+              + 0.01).to(torch.bfloat16)
+    kern = mods["dequant_matmul_t"].dequant_matmul_t_cuda
+    y = kern(x, codes, scales, cb, block, bits)
+    y_plain = ref.dequant_matmul_t_ref(x, codes, scales, cb, block, bits)
+    torch.cuda.synchronize()
+    scale = float(y_plain.float().abs().max())
+    torch.testing.assert_close(y.float(), y_plain.float(), rtol=1.6e-2,
+                               atol=1e-2 * scale)
+    err = float((y.float() - y_plain.float()).abs().max())
+    table = ref.dequant_weight(codes, scales, cb, block, bits).to(
+        torch.bfloat16)
+    nbytes = V * D * bits // 8 + V * (D // block) * 2 + M * D * 2 + M * V * 2
+    flops = 2 * M * V * D
+    out = dict(
+        V=V, D=D, M=M, bits=bits, bytes=nbytes, flops=flops,
+        bound_ms=bound_ms(nbytes, flops),
+        kernel_ms=time_ms(lambda: kern(x, codes, scales, cb, block, bits),
+                          flush),
+        plain_ms=time_ms(lambda: ref.dequant_matmul_t_ref(
+            x, codes, scales, cb, block, bits), flush, reps=5),
+        library_ms=time_ms(lambda: torch.matmul(x, table.t()), flush),
+        max_abs_err=err, max_abs_y=scale)
+    del table
+    return out
+
+
+def block_quant_case(mods, dev, gen, flush, rows, hd, fmt):
+    """Quantise ``rows`` bf16 rows of ``hd`` (the serving input: fresh k or
+    v rows, block = hd): codes and scales bitwise equal to the plain
+    version, also in the fused pack + scatter form the cache write uses,
+    which is the form timed. No single PyTorch call computes this."""
+    from repro_torch.kernels.block_quant.ref import (block_quant_ref,
+                                                     pack_pairs)
+    from repro_torch.serve.cache import kv_codebook
+    cb = kv_codebook(fmt, dev)
+    pack = fmt == "q4"
+    x = (torch.randn(rows, hd, generator=gen, device=dev) * 3).to(
+        torch.bfloat16)
+    x[1] = 0
+    kern = mods["block_quant"].block_quant_cuda
+    codes, scales = kern(x, cb, hd)
+    want_c, want_s = block_quant_ref(x, cb, hd)
+    torch.cuda.synchronize()
+    check(torch.equal(codes, want_c) and torch.equal(scales, want_s),
+          f"block_quant {rows}x{hd} {fmt}: codes or scales differ from the "
+          "plain version")
+    slots = 4 * rows                  # a cache of 4x the rows, scattered
+    width = hd // 2 if pack else hd
+    buf = (torch.zeros(slots, width, dtype=torch.uint8, device=dev),
+           torch.zeros(slots, 1, device=dev))
+    dest = torch.randperm(slots, generator=gen, device=dev)[:rows]
+    kern(x, cb, hd, pack=pack, out=buf, rows=dest)
+    torch.cuda.synchronize()
+    want_packed = pack_pairs(want_c) if pack else want_c
+    check(torch.equal(buf[0][dest], want_packed) and
+          torch.equal(buf[1][dest], want_s),
+          f"block_quant {rows}x{hd} {fmt}: fused pack/scatter differs")
+
+    def plain():
+        c, s = block_quant_ref(x, cb, hd)
+        buf[0][dest] = pack_pairs(c) if pack else c
+        buf[1][dest] = s
+    nbytes = rows * hd * 2 + rows * 8 + rows * width + rows * 4
+    return dict(
+        rows=rows, hd=hd, fmt=fmt, bytes=nbytes, flops=0,
+        bound_ms=bound_ms(nbytes, 0),
+        kernel_ms=time_ms(lambda: kern(x, cb, hd, pack=pack, out=buf,
+                                       rows=dest), flush),
+        plain_ms=time_ms(plain, flush), library_ms=None, max_abs_err=0.0,
+        bitwise=True)
+
+
+ATTN_CASES = [
+    # (T, S, ring, window, first query position of each of the 4 rows)
+    (1, 520, True, 512, [515, 519, 300, 12]),
+    (8, 520, True, 512, [400, 505, 200, 0]),
+    (8, 520, True, 512, [600, 590, 1000, 8]),      # wrapped rings
+    (1, 1032, False, 0, [1000, 17, 513, 1023]),
+    (8, 1032, False, 0, [1000, 8, 500, 0]),
+]
+
+
+def attention_case(mods, dev, gen, flush, T, S, ring, window, starts, fmt):
+    """gemma3-1b's attention read: B=4, H=4, K=1, hd=256, codes written by
+    the port's own quantise_kv. Library: scaled_dot_product_attention on
+    K/V dequantised to bf16 beforehand, under the same boolean mask."""
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_quant_ref, dequant_kv_ref)
+    from repro_torch.models.layers import attention_mask, quantise_kv
+    from repro_torch.serve.cache import kv_bits, kv_codebook
+    B, H, K, hd = 4, 4, 1, 256
+    bits = kv_bits(fmt)
+    cb = kv_codebook(fmt, dev)
+    kc, ks = quantise_kv(torch.randn(B, S, K, hd, generator=gen, device=dev),
+                         cb, bits)
+    vc, vs = quantise_kv(torch.randn(B, S, K, hd, generator=gen, device=dev),
+                         cb, bits)
+    q = torch.randn(B, T, H, hd, generator=gen, device=dev).to(torch.bfloat16)
+    qp = (torch.tensor(starts, dtype=torch.int32, device=dev)[:, None]
+          + torch.arange(T, dtype=torch.int32, device=dev))
+    kern = mods["decode_attention_quant"].decode_attention_quant_cuda
+    args = (q, kc, ks, vc, vs, cb, qp)
+    out = kern(*args, window, ring=ring, bits=bits)
+    want = decode_attention_quant_ref(*args, window=window, ring=ring,
+                                      bits=bits)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(out).all()), "decode_attention: non-finite")
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
+                               atol=2e-2 * scale)
+    err = float((out.float() - want.float()).abs().max())
+    kd = dequant_kv_ref(kc, ks, cb, bits, torch.bfloat16).permute(
+        0, 2, 1, 3).repeat_interleave(H // K, dim=1).contiguous()
+    vd = dequant_kv_ref(vc, vs, cb, bits, torch.bfloat16).permute(
+        0, 2, 1, 3).repeat_interleave(H // K, dim=1).contiguous()
+    qt = q.transpose(1, 2).contiguous()
+    mask = attention_mask(qp, S, window=window, ring=ring).reshape(B, T, S)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    hdc = hd // 2 if bits == 4 else hd
+    # the work this run's positions need: K/V rows of the slots some query
+    # of the row sees (causal, window, ring), scores over visible pairs only
+    slots = int(mask.any(dim=1).sum())
+    pairs = int(mask.sum())
+    nbytes = (2 * B * T * H * hd * 2 + 2 * slots * K * (hdc + 4) + B * T * 4)
+    flops = 4 * H * hd * pairs
+    return dict(
+        T=T, S=S, ring=ring, window=window, fmt=fmt, starts=starts,
+        visible_slots=slots, bytes=nbytes, flops=flops, bound_ms=bound_ms(nbytes, flops),
+        bound_by=bound_by(nbytes, flops),
+        kernel_ms=time_ms(lambda: kern(*args, window, ring=ring, bits=bits),
+                          flush),
+        plain_ms=time_ms(lambda: decode_attention_quant_ref(
+            *args, window=window, ring=ring, bits=bits), flush),
+        library_ms=time_ms(lambda: sdpa(qt, kd, vd,
+                                        attn_mask=mask[:, None]), flush),
+        max_abs_err=err, max_abs_y=scale)
+
+
+def kernel_phase(mods, dev):
+    from repro_torch.core.registry import parse_format
     gen = torch.Generator(device=dev).manual_seed(0)
     cb4 = parse_format(SPEC).element.torch_codepoints(dev)
     cb8 = parse_format("babsmax64:int8").element.torch_codepoints(dev)
     flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
-    rows = []
+    rows = {name: [] for name in KERNELS}
+
+    def record(name, r, **kw):
+        r.update(kernel=name, **kw)
+        emit(phase="kernel", **r)
+        rows[name].append(r)
+
     for model, projs in PROJECTIONS.items():
         for (K, N), per_step, names in projs:
             for M in (1, 4, 32):
-                r = kernel_case(dqm, ref, dev, gen, cb4, flush, K, N, M, 4)
-                r.update(model=model, weights=names,
-                         launches_per_step=per_step)
-                emit(phase="kernel", **r)
-                rows.append(r)
-    r = kernel_case(dqm, ref, dev, gen, cb8, flush, 4096, 4096, 4, 8)
-    emit(phase="kernel", model="deepseek-7b", weights="wq (8-bit codes)",
-         **r)
-    rows.append(r)
-    r = kernel_case(dqm, ref, dev, gen, cb4, flush, 768, 2048, 4, 4, lead=4)
-    emit(phase="kernel", model="paper-100m", weights="lead dim 4", **r)
-    rows.append(r)
+                record("dequant_matmul", matmul_case(
+                    mods, dev, gen, cb4, flush, K, N, M, 4), model=model,
+                    weights=names, launches_per_step=per_step)
+    record("dequant_matmul", matmul_case(mods, dev, gen, cb8, flush, 4096,
+                                         4096, 4, 8),
+           model="deepseek-7b", weights="wq (8-bit codes)")
+    record("dequant_matmul", matmul_case(mods, dev, gen, cb4, flush, 768,
+                                         2048, 4, 4, lead=4),
+           model="paper-100m", weights="lead dim 4")
+    V, D = UNEMBED_T
+    for M, bits in ((1, 4), (4, 4), (32, 4), (4, 8)):
+        record("dequant_matmul_t", matmul_t_case(
+            mods, dev, gen, cb4 if bits == 4 else cb8, flush, V, D, M, bits),
+            model="gemma3-1b", weights="tied unembed")
+    for fmt in ("q8", "q4"):
+        for hd in (256, 64):
+            for n in (4, 32, 256):
+                record("block_quant", block_quant_case(
+                    mods, dev, gen, flush, n, hd, fmt))
+        for T, S, ring, window, starts in ATTN_CASES:
+            record("decode_attention_quant", attention_case(
+                mods, dev, gen, flush, T, S, ring, window, starts, fmt))
+    del flush
+    torch.cuda.empty_cache()
     return rows
 
 
 # ---------------------------------------------------------------------------
-# Phases 3 and 4: serving
+# Phases 3 to 5: serving
 
 
-def build_engine(arch, dev, seed=0, kv_len=256):
+def build_engine(arch, dev, seed=0, kv_len=256, kv_format=""):
     from repro_torch import configs
     from repro_torch.core import build_plan
     from repro_torch.models import transformer
     from repro_torch.serve.engine import ServeEngine
-    cfg = configs.get_config(arch, "full")
+    cfg = configs.get_config(arch, "full").replace(kv_format=kv_format)
     t0 = time.monotonic()
     params = transformer.init(cfg, seed=seed, device=dev)
     plan = build_plan(params, SPEC)
@@ -217,24 +450,27 @@ class StepRecorder:
         return logits, state
 
 
-def serve(eng, dqm, prompts, keep_logits):
-    """Warm up, then serve ``prompts`` with the launch count zeroed just
-    before the run and read just after."""
+def serve(eng, mods, requests, keep_logits, warm=True):
+    """Serve ``requests`` ((prompt, max_new) pairs) after an optional warm-up,
+    with every kernel's launch count set to 0 just before the run and read
+    just after it."""
     from repro_torch.serve.engine import Request
-    eng.submit(Request(prompt=prompts[0], max_new_tokens=2, rid=-1))
-    eng.run()
-    torch.cuda.synchronize()
+    if warm:
+        eng.submit(Request(prompt=requests[0][0], max_new_tokens=2, rid=-1))
+        eng.run()
+        torch.cuda.synchronize()
     rec = StepRecorder(eng.fam.decode_step, keep_logits)
     eng.fam = dataclasses.replace(eng.fam, decode_step=rec)
-    for rid, p in enumerate(prompts):
-        eng.submit(Request(prompt=p, max_new_tokens=16, rid=rid))
+    for rid, (p, n) in enumerate(requests):
+        eng.submit(Request(prompt=p, max_new_tokens=n, rid=rid))
     steps0 = eng.steps_total
-    dqm.launches = 0
+    for m in mods.values():
+        m.launches = 0
     t0 = time.monotonic()
-    done = eng.run()
+    done = eng.run(max_steps=4096)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = dqm.launches
+    launches = {name: m.launches for name, m in mods.items()}
     steps = eng.steps_total - steps0
     eng.fam = dataclasses.replace(eng.fam, decode_step=rec.step)
     decode = [r["s"] for r in rec.records if r["T"] == 1]
@@ -247,6 +483,21 @@ def serve(eng, dqm, prompts, keep_logits):
                  failed=sum(g.failed for g in done),
                  done=sum(g.done for g in done))
     return done, stats, rec.records
+
+
+def check_run(arch, done, stats, requests):
+    """Every request finished with all its tokens, and each kernel ran its
+    designed number of launches per step (and the others none)."""
+    check(stats["failed"] == 0 and stats["done"] == len(requests) and
+          sorted(len(g.tokens) for g in done) ==
+          sorted(n for _, n in requests),
+          f"{arch}: requests did not all finish: {stats}")
+    per_step = LAUNCHES_PER_STEP[arch]
+    for name, n in stats["launches"].items():
+        want = per_step.get(name, 0) * stats["steps"]
+        check(n == want, f"{arch}: {name} launched {n} times over "
+              f"{stats['steps']} steps, expected {per_step.get(name, 0)} "
+              "per step")
 
 
 def profile_steps(eng):
@@ -278,12 +529,16 @@ def profile_steps(eng):
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     host = sorted(events, key=lambda e: e.self_cpu_time_total,
                   reverse=True)[:10]
+    launch_calls = sum(e.count for e in events
+                       if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                    "cudaLaunchKernelExC"))
     return dict(
         steps=steps, profiled_wall_ms_per_step=wall_ms / steps,
         device_busy_ms_per_step=busy_ms / steps,
         device_busy_share_profiled=busy_ms / wall_ms,
+        kernel_launches_per_step=launch_calls / steps,
         top_kernels=[[e.key[:70], dev_us(e) / 1e3, e.count]
-                     for e in kernels[:8]],
+                     for e in kernels[:10]],
         top_host_ops=[[e.key[:70], e.self_cpu_time_total / 1e3, e.count]
                       for e in host])
 
@@ -291,6 +546,20 @@ def profile_steps(eng):
 def high_margin(row):
     top2 = np.sort(row)[-2:]
     return top2[1] - top2[0] > 5e-2 * np.abs(row).max()
+
+
+def hold_logits(got, want, what):
+    """The logits rule for one position: max error within 5e-2·max|want|,
+    and the same argmax where want's top-2 margin is above that. Returns
+    (error ÷ max|want|, whether the margin was high)."""
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    check(err <= 5e-2 * scale, f"{what}: logits off by {err} > "
+          f"{5e-2 * scale}")
+    margin = bool(high_margin(want))
+    check(not margin or int(np.argmax(got)) == int(np.argmax(want)),
+          f"{what}: argmax differs at a high margin")
+    return err / scale, margin
 
 
 def compare_with_cpu(eng, records):
@@ -310,17 +579,11 @@ def compare_with_cpu(eng, records):
             tv = rec["batch"]["t_valid"].numpy()
             for i in range(len(tv)):
                 for t in range(int(tv[i])):
-                    want = logits[i, t].numpy()
-                    got = rec["logits"][i, t].numpy()
-                    bound = 5e-2 * np.abs(want).max()
-                    err = float(np.abs(got - want).max())
-                    worst = max(worst, float(err / np.abs(want).max()))
-                    check(err <= bound, f"card logits off the CPU plain path "
-                          f"by {err} > {bound} (step pos {rec['pos'][i]})")
-                    if high_margin(want):
-                        n_margin += 1
-                        check(int(np.argmax(got)) == int(np.argmax(want)),
-                              "card and CPU argmax differ at a high margin")
+                    rel, margin = hold_logits(
+                        rec["logits"][i, t].numpy(), logits[i, t].numpy(),
+                        f"card vs CPU plain path, step pos {rec['pos'][i]}")
+                    worst = max(worst, rel)
+                    n_margin += margin
     check(n_margin > 0, "no high-margin token to compare")
     return worst, n_margin
 
@@ -350,20 +613,19 @@ def layer0_check(eng, dev):
     return worst
 
 
-def serve_phase(arch, dev, dqm, compare_cpu):
+def short_requests(vocab, seed=0):
+    rng = np.random.default_rng(seed)
+    return [(rng.integers(0, vocab, 8).tolist(), 16) for _ in range(4)]
+
+
+def serve_phase(arch, dev, mods, compare_cpu):
     eng, setup_s = build_engine(arch, dev)
     wb = eng.weight_bytes()
     check({k: wb[k] for k in WEIGHT_BYTES[arch]} == WEIGHT_BYTES[arch],
           f"{arch} weight_bytes {wb} != {WEIGHT_BYTES[arch]}")
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, eng.cfg.vocab, 8).tolist() for _ in range(4)]
-    done, stats, records = serve(eng, dqm, prompts, keep_logits=compare_cpu)
-    check(stats["launches"] == LAUNCHES_PER_STEP[arch] * stats["steps"],
-          f"{arch}: {stats['launches']} launches over {stats['steps']} "
-          f"steps, expected {LAUNCHES_PER_STEP[arch]} per step")
-    check(stats["failed"] == 0 and stats["done"] == 4 and
-          all(len(g.tokens) == 16 for g in done),
-          f"{arch}: requests did not all finish: {stats}")
+    reqs = short_requests(eng.cfg.vocab)
+    done, stats, records = serve(eng, mods, reqs, keep_logits=compare_cpu)
+    check_run(arch, done, stats, reqs)
     out = dict(phase="serve", arch=arch, setup_s=setup_s,
                weight_bytes=wb, cache_bytes=eng.cache_bytes()["total"],
                peak_mem_bytes=torch.cuda.max_memory_allocated(dev), **stats)
@@ -380,6 +642,119 @@ def serve_phase(arch, dev, dqm, compare_cpu):
     return out
 
 
+def active_row(rec):
+    """(tokens, t_valid, pos, logits) of the one row a single-request step
+    fed."""
+    rows = np.flatnonzero(rec["batch"]["t_valid"].numpy())
+    check(len(rows) == 1, f"expected one active row, got {rows}")
+    i = int(rows[0])
+    tv = int(rec["batch"]["t_valid"][i])
+    return (rec["batch"]["tokens"][i, :tv], tv, int(rec["pos"][i]),
+            rec["logits"][i, :tv].numpy())
+
+
+def compare_ring_with_full(ring_records, full_records, ring_slots):
+    """Hold the ring-cache run of one long request to the same request
+    served with every group at the full length (``windowed_cache=False``:
+    linear caches under the window mask, no wrapped writes), step by step
+    under ``hold_logits``, for as long as both steps were fed
+    the same tokens (a low-margin greedy token may differ). Every prefill
+    step and some positions past the ring's length must be compared."""
+    check(len(ring_records) == len(full_records),
+          f"ring run took {len(ring_records)} steps, full-length run "
+          f"{len(full_records)}")
+    worst, n_margin, wrapped, steps = 0.0, 0, 0, 0
+    for a, b in zip(ring_records, full_records):
+        tok_a, tv, pos, got = active_row(a)
+        tok_b, tv_b, pos_b, want = active_row(b)
+        if (tv, pos) != (tv_b, pos_b) or not torch.equal(tok_a, tok_b):
+            break
+        for t in range(tv):
+            rel, margin = hold_logits(got[t], want[t], f"ring vs full-length "
+                                      f"caches, position {pos + t}")
+            worst = max(worst, rel)
+            n_margin += margin
+            wrapped += pos + t >= ring_slots
+        steps += 1
+    n_prefill = sum(r["T"] > 1 for r in ring_records)
+    check(steps >= n_prefill, f"only {steps} of {n_prefill} prefill steps "
+          "were fed the same tokens")
+    check(wrapped > 0 and n_margin > 0,
+          f"no position past the ring ({wrapped}) or no high-margin token "
+          f"({n_margin}) compared")
+    return dict(full_max_rel_logit_err=worst, full_margin_tokens=n_margin,
+                full_compared_steps=steps, full_wrapped_positions=wrapped)
+
+
+def gemma3_phase(dev, mods):
+    """gemma3-1b full, kv_len 1024: q8 (4 requests compared with the CPU
+    plain path, profiled, then a 600-token prompt that wraps the 520-slot
+    rings, held to the same request on full-length caches), then the same 4
+    requests with a q4 cache on the same packed weights."""
+    from repro_torch.serve.engine import ServeEngine
+    arch = "gemma3-1b"
+    eng, setup_s = build_engine(arch, dev, kv_len=1024, kv_format="q8")
+    wb = eng.weight_bytes()
+    check({k: wb[k] for k in WEIGHT_BYTES[arch]} == WEIGHT_BYTES[arch],
+          f"{arch} weight_bytes {wb} != {WEIGHT_BYTES[arch]}")
+    runs = []
+    reqs = short_requests(eng.cfg.vocab)
+    long_req = [(np.random.default_rng(2).integers(
+        0, eng.cfg.vocab, 600).tolist(), 8)]
+    for fmt in ("q8", "q4"):
+        setup = {"setup_s": setup_s}
+        if fmt == "q4":
+            t0 = time.monotonic()
+            eng = ServeEngine(eng.cfg.replace(kv_format="q4"), eng.params,
+                              batch_slots=4, kv_len=1024, prefill_chunk=8,
+                              device=dev)
+            setup = {"engine_s": time.monotonic() - t0}
+        cb = eng.cache_bytes()
+        check(cb["kv"] == KV_BYTES[fmt] and
+              [g["length"] for g in cb["cache_groups"]] == [520, 1032],
+              f"{arch} {fmt}: cache_bytes {cb['kv']} (groups "
+              f"{cb['cache_groups']}) != {KV_BYTES[fmt]}")
+        done, stats, records = serve(eng, mods, reqs,
+                                     keep_logits=fmt == "q8")
+        check_run(arch, done, stats, reqs)
+        out = dict(phase="serve", arch=arch, kv_format=fmt, **setup,
+                   weight_bytes=wb, kv_bytes=cb["kv"],
+                   kv_code_bytes=cb["code_bytes"],
+                   kv_scale_bytes=cb["scale_bytes"],
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+                   **stats)
+        if fmt == "q8":
+            emit(phase="profile", arch=arch, kv_format=fmt,
+                 **profile_steps(eng))
+            long_done, long_stats, ring_recs = serve(
+                eng, mods, long_req, keep_logits=True, warm=False)
+            check_run(arch, long_done, long_stats, long_req)
+            full = ServeEngine(eng.cfg, eng.params, batch_slots=4,
+                               kv_len=1024, prefill_chunk=8,
+                               windowed_cache=False, device=dev)
+            full_done, full_stats, full_recs = serve(
+                full, mods, long_req, keep_logits=True, warm=False)
+            check_run(arch, full_done, full_stats, long_req)
+            del full
+            witness = compare_ring_with_full(ring_recs, full_recs, 520)
+            del ring_recs, full_recs
+            emit(phase="serve_long", arch=arch, kv_format=fmt,
+                 prompt_tokens=600, ring_slots=520, **long_stats,
+                 full_length_tokens=full_done[0].tokens,
+                 ring_tokens=long_done[0].tokens, **witness)
+            runs += [long_stats, full_stats]
+            t0 = time.monotonic()
+            worst, n = compare_with_cpu(eng, records)
+            out.update(cpu_max_rel_logit_err=worst, cpu_margin_tokens=n,
+                       cpu_compare_s=time.monotonic() - t0)
+        out["tokens"] = {g.rid: g.tokens for g in done}
+        emit(**out)
+        runs.append(stats)
+    del eng
+    torch.cuda.empty_cache()
+    return runs
+
+
 def device_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -388,49 +763,119 @@ def device_line():
         f"nvidia-smi failed: {r.stderr.strip()}"
 
 
+def ptxas_summary(build_dir):
+    """Registers, spills and stack per library from nvcc's -Xptxas -v."""
+    out = {}
+    for name in KERNELS:
+        lib = "decode_attention" if name == "decode_attention_quant" else name
+        report = (build_dir / f"ptxas_{lib}.txt").read_text()
+
+        def most(pattern):
+            return max((int(n) for n in re.findall(pattern, report)),
+                       default=0)
+        out[name] = dict(
+            max_registers=most(r"Used (\d+) registers"),
+            max_spill_store_bytes=most(r"(\d+) bytes spill stores"),
+            max_stack_frame_bytes=most(r"(\d+) bytes stack frame"))
+    return out
+
+
+def per_step(rows, pick, launches):
+    """Σ over the picked shapes of (per-call number x launches per step);
+    None where a shape has no such number (no library call)."""
+    picked = [r for r in rows if pick(r)]
+    check(picked, "no kernel-phase shape for a per-step sum")
+    out = {}
+    for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "bytes",
+              "flops"):
+        vals = [r[k] for r in picked]
+        out[k] = (None if None in vals else
+                  sum(v * launches(r) for v, r in zip(vals, picked)))
+    out["bound_by"] = bound_by(out["bytes"], out["flops"])
+    return out
+
+
+def summary(rows, runs):
+    """The kernels line: per kernel its launches over the serve runs and,
+    per gemma3-1b decode step (B = 4, q8 cache), its per-call times at that
+    step's shapes times its launches per step. Also emits deepseek-7b's
+    step for dequant_matmul."""
+    launches = {name: sum(r["launches"][name] for r in runs)
+                for name in KERNELS}
+    g_step = LAUNCHES_PER_STEP["gemma3-1b"]
+    # per gemma3-1b decode step (B = 4, q8 cache): each kernel's per-call
+    # times at that step's shapes times its launches per step
+    steps = {
+        "dequant_matmul": per_step(
+            rows["dequant_matmul"],
+            lambda r: r.get("model") == "gemma3-1b" and r["M"] == 4,
+            lambda r: r["launches_per_step"]),
+        "dequant_matmul_t": per_step(
+            rows["dequant_matmul_t"],
+            lambda r: r["M"] == 4 and r["bits"] == 4, lambda r: 1),
+        "block_quant": per_step(
+            rows["block_quant"],
+            lambda r: r["rows"] == 4 and r["hd"] == 256 and r["fmt"] == "q8",
+            lambda r: g_step["block_quant"]),
+        "decode_attention_quant": per_step(
+            rows["decode_attention_quant"],
+            lambda r: r["T"] == 1 and r["fmt"] == "q8",
+            lambda r: 22 if r["ring"] else 4),
+    }
+    ds = per_step(rows["dequant_matmul"],
+                  lambda r: r.get("model") == "deepseek-7b" and r["M"] == 4
+                  and r.get("launches_per_step"),
+                  lambda r: r["launches_per_step"])
+    emit(phase="summary", measured_over="one deepseek-7b decode step at "
+         "M=4 (211 launches)", kernel="dequant_matmul", **ds)
+    line = []
+    for name, k in KERNELS.items():
+        st = steps[name]
+        line.append({
+            "name": name, "route": "cuda", "source": k["source"],
+            "replaces": k["replaces"], "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
+            "ms": st["kernel_ms"], "plain_ms": st["plain_ms"],
+            "bound_ms": st["bound_ms"], "bound_by": st["bound_by"],
+            "library_ms": st["library_ms"],
+            "checked": True,
+            "measured_over": f"one gemma3-1b decode step (B=4, q8 cache): "
+                             f"{g_step[name]} launches, per-shape times x "
+                             "launches"})
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.kernels.dequant_matmul import build
-    from repro_torch.kernels.dequant_matmul import dequant_matmul as dqm
+    from repro_torch.kernels import build
+    mods = wrappers()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    t_start = time.monotonic()
     print(device_line(), flush=True)
     t0 = time.monotonic()
-    lib = build.build(verbose=True)
-    report = (lib.parent / "ptxas.txt").read_text()
+    build.build(verbose=True)
     emit(phase="build", seconds=time.monotonic() - t0,
-         max_registers=max(int(n) for n in re.findall(
-             r"Used (\d+) registers", report)),
-         max_spill_store_bytes=max(int(n) for n in re.findall(
-             r"(\d+) bytes spill stores", report)),
-         max_stack_frame_bytes=max(int(n) for n in re.findall(
-             r"(\d+) bytes stack frame", report)),
+         ptxas=ptxas_summary(build.build_dir()),
          torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0))
 
-    rows = kernel_phase(dev)
-    paper = serve_phase("paper-100m", dev, dqm, compare_cpu=True)
-    deepseek = serve_phase("deepseek-7b", dev, dqm, compare_cpu=False)
+    rows = kernel_phase(mods, dev)
+    emit(phase="timing", kernel_phase_end_s=time.monotonic() - t_start)
+    paper = serve_phase("paper-100m", dev, mods, compare_cpu=True)
+    deepseek = serve_phase("deepseek-7b", dev, mods, compare_cpu=False)
+    emit(phase="timing", dense_serve_end_s=time.monotonic() - t_start)
+    gemma = gemma3_phase(dev, mods)
+    emit(phase="timing", gemma3_end_s=time.monotonic() - t_start)
 
-    step = [r for r in rows if r.get("model") == "deepseek-7b"
-            and r["M"] == 4 and r["bits"] == 4 and r.get("launches_per_step")]
-    total = {k: sum(r[k] * r["launches_per_step"] for r in step)
-             for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
-    emit(kernels=[{
-        "name": "dequant_matmul", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": paper["launches"] + deepseek["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": total["kernel_ms"], "plain_ms": total["plain_ms"],
-        "bound_ms": total["bound_ms"], "bound_by": "bytes",
-        "library_ms": total["library_ms"], "checked": True,
-        "measured_over": "one deepseek-7b decode step at M=4 "
-                         "(211 launches), per-shape times x launches"}])
+    line = summary(rows, [paper, deepseek, *gemma])
+    emit(phase="timing", total_s=time.monotonic() - t_start)
+    emit(kernels=line)
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

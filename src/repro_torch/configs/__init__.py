@@ -2,12 +2,12 @@
 
 Each module exposes ``full()`` (the published config) and ``smoke()`` (a
 reduced same-family config for CPU tests); paper-100m also ``small()``.
-The reference's other nine configs come with their model families."""
+The reference's other eight configs come with their model families."""
 from __future__ import annotations
 
-from . import deepseek_7b, paper_100m
+from . import deepseek_7b, gemma3_1b, paper_100m
 
-_MODULES = [deepseek_7b, paper_100m]
+_MODULES = [deepseek_7b, gemma3_1b, paper_100m]
 
 ARCHS = {m.ARCH_ID: m for m in _MODULES}
 

@@ -1,9 +1,15 @@
 """repro_torch.kernels — hand-written Hopper kernels and their dispatch.
 
-  dequant_matmul   fused dequantise @ x, CUDA C++ for sm_90a
-                   (``csrc/dequant_matmul.cu``), built with nvcc at first
-                   use and bound with ctypes (``dequant_matmul/build.py``)
+  dequant_matmul          fused dequantise @ x          csrc/dequant_matmul.cu
+  dequant_matmul_t        x @ dequantise.T (tied unembed)
+                                                        csrc/dequant_matmul_t.cu
+  block_quant             block-absmax quantisation (KV writes)
+                                                        csrc/block_quant.cu
+  decode_attention_quant  decode attention from quantised KV
+                                                        csrc/decode_attention.cu
 
-``ops`` sends CUDA tensors to the kernel and CPU tensors to its plain torch
-version in ``<kernel>/ref.py``.
+All CUDA C++ for sm_90a, built with nvcc at first use (one library per
+source, in parallel) and bound with ctypes (``build.py``). ``ops`` sends
+CUDA tensors to the kernels and CPU tensors to their plain torch versions in
+``<kernel>/ref.py``.
 """

@@ -1,1 +1,2 @@
-"""Fused dequantise-matmul: CUDA kernel wrapper, build and plain version."""
+"""Fused dequantise-matmuls (normal and transposed): the CUDA kernels'
+wrappers and their plain torch versions."""

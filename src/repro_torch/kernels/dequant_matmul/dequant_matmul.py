@@ -15,7 +15,7 @@ import functools
 import torch
 
 from repro_torch.core.nibble import nibble_k_tile
-from repro_torch.kernels.dequant_matmul import build
+from repro_torch.kernels import build
 
 # Launches made by dequant_matmul_cuda since the count was last set to 0.
 launches = 0
@@ -103,7 +103,7 @@ def dequant_matmul_cuda(x, codes, scales, codebook, block: int = 128,
                         bits: int = 8) -> torch.Tensor:
     """Launch the CUDA kernel; see the module docstring."""
     global launches
-    lib = build.load_library()
+    lib = build.load_library("dequant_matmul")
     _check(x, codes, scales, codebook, block, bits)
     lead = x.ndim == 3
     E = x.shape[0] if lead else 1

@@ -1,12 +1,12 @@
 """Serving driver: random-init (seeded) weights, optionally quantised and
 packed, served to a batch of requests by the continuous-batching engine.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch paper-100m \
-        --variant full --quantise babsmax64:n4 --packed --requests 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
+        --variant full --quantise babsmax64:n4 --packed --kv-format q8
 
 Runs on the card by default; ``--device cpu`` runs the plain torch path.
-Loading a checkpoint (``--ckpt``), the KV-format options and the traffic
-replay front end come with later slices.
+Loading a checkpoint (``--ckpt``), the Fisher KV allocation (``--kv-format
+auto``) and the traffic replay front end come with later slices.
 """
 from __future__ import annotations
 
@@ -33,6 +33,14 @@ def main(argv=None):
                          "per byte for ≤16-point codebooks — + block scales) "
                          "and serve through dequant_matmul instead of "
                          "materialising dense fake-quant weights")
+    ap.add_argument("--uniform-cache", action="store_true",
+                    help="disable the rolling-window ring allocation for "
+                         "local-attention layer groups and serve from the "
+                         "masked full-length baseline layout")
+    ap.add_argument("--kv-format", default=None,
+                    help="KV-cache storage: f32 (dense, the default), q8 or "
+                         "q4 (block-scaled codes + per-row scales), one for "
+                         "every cache group or a comma list, one per group")
     ap.add_argument("--prefill-chunk", type=int, default=8,
                     help="batched chunked-prefill width")
     ap.add_argument("--requests", type=int, default=4)
@@ -57,11 +65,17 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = configs.get_config(args.arch, args.variant)
+    if args.kv_format == "auto":
+        raise SystemExit("[serve] --kv-format auto (the Fisher KV "
+                         "allocation) is not ported yet; name the formats")
+    if args.kv_format and args.kv_format != "f32":
+        cfg = cfg.replace(kv_format=args.kv_format)
     fam = get_family(cfg.family)
     params = fam.init(cfg, seed=args.seed, device=device)
     kw = dict(batch_slots=args.slots, kv_len=args.kv_len,
               prefill_chunk=args.prefill_chunk,
-              strict_admission=not args.relaxed_admission, device=device)
+              strict_admission=not args.relaxed_admission,
+              windowed_cache=not args.uniform_cache, device=device)
     if args.quantise:
         plan = build_plan(params, args.quantise)
         bits = plan.bits_per_param(params)
@@ -87,7 +101,18 @@ def main(argv=None):
         eng = ServeEngine(cfg, params, **kw)
     del params
     cb = eng.cache_bytes()
-    print(f"[serve] decode cache {cb['total']:,} bytes resident")
+    print(f"[serve] decode cache {cb['total']:,} bytes resident "
+          f"({cb['cache_ratio_vs_uniform']}x the uniform full-length "
+          "dense cache)")
+    if eng.cfg.kv_format:
+        print(f"[serve] quantised KV ({eng.cfg.kv_format}): "
+              f"{cb['kv']:,} bytes ({cb['code_bytes']:,} codes + "
+              f"{cb['scale_bytes']:,} scales), "
+              f"{cb['cache_ratio_vs_dense']}x the dense cache")
+    for i, g in enumerate(cb["cache_groups"]):
+        print(f"[serve]   group {i} [{g['format']}, window {g['window']}] "
+              f"{g['n_layers']} layer(s) x {g['length']} slots: "
+              f"{g['bytes']:,} bytes")
     rng = np.random.default_rng(args.seed)
     for rid in range(args.requests):
         prompt = rng.integers(0, cfg.vocab, size=4).tolist()

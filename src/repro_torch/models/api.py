@@ -91,8 +91,8 @@ class ModelConfig:
     dtype: str = "bfloat16"       # compute dtype
     param_dtype: str = "float32"  # master dtype
     kv_dtype: str = ""            # KV-cache storage dtype ("" = dtype)
-    kv_format: str = ""           # quantised KV-cache storage per cache group
-                                  # ("" = dense; q8/q4 not ported yet)
+    kv_format: str = ""           # KV-cache storage per cache group ("" =
+                                  # dense; "q8"/"q4", or a comma list)
     attn_chunk: int = 1024        # flash-attention KV chunk
     linear_chunk: int = 32        # WKV/SSD block-parallel chunk (0 = scan)
     remat: str = "full"           # none | full | dots

@@ -1,11 +1,15 @@
 """Shared layers of the decode path: the packed-aware projection API
-(``linear``, ``embed_lookup``), RMSNorm, RoPE, dense multi-token decode
-attention over a KV cache, cache writes and the SwiGLU MLP.
+(``linear``, ``embed_lookup``), RMSNorm, RoPE, multi-token decode attention
+over a dense or quantised KV cache, cache writes and the SwiGLU MLP.
 
 Torch on the operands' device. ``linear`` is the single way a model
 multiplies an activation by a parameter: dense weights take the einsum of
 the call site, ``PackedTensor`` weights the fused ``dequant_matmul`` kernel
-(the CUDA kernel on the card, its plain version on the CPU).
+(or ``dequant_matmul_t`` when the contraction runs along the packed table's
+blocked axis, the tied unembed). A quantised KV cache (:class:`QuantisedKV`)
+is written through ``block_quant`` and read through
+``decode_attention_quant``. Each is the CUDA kernel on the card and its
+plain version on the CPU.
 """
 from __future__ import annotations
 
@@ -46,15 +50,18 @@ def linear(x, w, spec: str):
 
     Packed weights route through ``kernels.ops.dequant_matmul``: x is
     flattened to (B·T, K) (``x`` is (B, T, *k_dims) with the trailing dims
-    contracting) and the result unflattened to (B, T, *out_shape). The
-    transposed orientation (tied embeddings) needs ``dequant_matmul_t``,
-    which is not ported yet."""
+    contracting) and the result unflattened to (B, T, *out_shape). A spec
+    whose weight subscripts end with the contracting labels (``"btd,vd->
+    btv"``, the tied unembed) contracts along the packed table's blocked
+    axis through ``dequant_matmul_t``; no transposed copy is made."""
     if isinstance(w, PackedTensor):
-        if _spec_orientation(spec) == "transposed":
-            raise NotImplementedError(
-                f"linear({spec!r}): the transposed packed matmul "
-                "(dequant_matmul_t, tied embeddings) is not ported yet")
         B, T = x.shape[0], x.shape[1]
+        if _spec_orientation(spec) == "transposed":
+            n = int(np.prod(w.out_shape))
+            y = kops.dequant_matmul_t(x.reshape(B * T, n).contiguous(),
+                                      w.codes, w.scales, w.codebook(),
+                                      block=w.block, bits=w.bits)
+            return y.reshape(B, T, w.k_dim)
         y = kops.dequant_matmul(x.reshape(B * T, w.k_dim).contiguous(),
                                 w.codes, w.scales, w.codebook(),
                                 block=w.block, bits=w.bits)
@@ -126,6 +133,47 @@ def rope(x, positions, theta: float):
 
 
 # ---------------------------------------------------------------------------
+# Quantised KV cache (block-scaled codes + per-row scales)
+# ---------------------------------------------------------------------------
+
+class QuantisedKV(NamedTuple):
+    """One cache stack's quantised storage: codes (..., S, K, hdc) uint8 and
+    scales (..., S, K, 1) float32 (hdc = hd, or hd // 2 nibble-packed)."""
+    codes: torch.Tensor
+    scales: torch.Tensor
+
+
+def codebook_bits(codebook) -> int:
+    """Code width of a KV codebook: 16 codes -> 4 (nibble-packed), 256 -> 8."""
+    n = codebook.shape[0]
+    if n == 16:
+        return 4
+    if n == 256:
+        return 8
+    raise ValueError(f"KV codebook must have 16 or 256 codes, got {n}")
+
+
+def quantise_kv(new, codebook, bits: int):
+    """Quantise fresh K or V rows (B, T, K, hd) through ``block_quant``
+    (absmax per (token, head) row -> bf16 round-away scale -> nearest
+    codebook index). Returns (codes (B, T, K, hdc) uint8, scales (B, T, K,
+    1) f32); 4-bit codes pack pairwise along hd (byte j = element 2j low |
+    element 2j+1 high), so each row is self-contained. The reference pads
+    the rows to its kernel's row tile first; padding changes no code, so
+    the port does not."""
+    B, T, K, hd = new.shape
+    codes, scales = kops.block_quant(new.reshape(B * T * K, hd).contiguous(),
+                                     codebook, block=hd, pack=bits == 4)
+    return codes.reshape(B, T, K, -1), scales.reshape(B, T, K, 1)
+
+
+def dequant_kv(cache: QuantisedKV, codebook, dtype=torch.float32):
+    """Densify a quantised cache stack (tests and the plain path only)."""
+    return kops.dequant_kv(cache.codes, cache.scales, codebook,
+                           bits=codebook_bits(codebook), dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
 
@@ -186,11 +234,18 @@ def attend(q, k_cache, v_cache, mask):
 
 
 def chunked_decode_attention(q, k_cache, v_cache, q_positions, *, window=0,
-                             ring=False):
+                             ring=False, codebook=None):
     """Multi-token decode attention with per-slot positions: a chunk of T
-    query tokens per batch row against that row's dense KV cache.
-    q: (B, T, H, hd); caches (B, S, K, hd); q_positions (B, T) absolute
-    positions (the new tokens' k/v are already written)."""
+    query tokens per batch row against that row's KV cache.
+    q: (B, T, H, hd); caches (B, S, K, hd) — or :class:`QuantisedKV` with
+    their ``codebook``, read straight from codes by
+    ``decode_attention_quant`` under the same masks; q_positions (B, T)
+    absolute positions (the new tokens' k/v are already written)."""
+    if isinstance(k_cache, QuantisedKV):
+        return kops.decode_attention_quant(
+            q, k_cache.codes, k_cache.scales, v_cache.codes, v_cache.scales,
+            codebook, q_positions, window, ring=ring,
+            bits=codebook_bits(codebook))
     mask = attention_mask(q_positions, k_cache.shape[1], window=window,
                           ring=ring)
     return attend(q, k_cache, v_cache, mask)
@@ -211,41 +266,82 @@ def cache_slots(pos, T: int, S: int, *, ring=False):
     return rows, slots.long()
 
 
-def update_kv_cache(cache, new, pos, *, ring=False):
-    """Write T new entries per batch row at that row's own position, **in
-    place**: cache (B, S, K, hd) is a view into the engine's (L, B, S, K, hd)
-    stack, so the stack itself is updated. new: (B, T, K, hd); pos: (B,).
-    Returns the cache."""
-    rows, slots = cache_slots(pos, new.shape[1], cache.shape[1], ring=ring)
-    cache[rows, slots] = new.to(cache.dtype)
+def kv_rows(rows, slots, S: int, K: int):
+    """Flat cache rows (B·T·K,) int64 of a (B, S, K, ·) cache that the new
+    (B, T, K) entries at (rows, slots) land in: ``block_quant`` writes
+    there."""
+    heads = torch.arange(K, device=slots.device)
+    return ((rows * S + slots)[..., None] * K + heads).reshape(-1)
+
+
+def write_kv(cache, new, rows, slots, codebook=None, dest=None):
+    """Write new (B, T, K, hd) entries at (rows, slots) **in place**. A
+    :class:`QuantisedKV` cache quantises them on the way (``codebook``
+    required; ``dest`` = :func:`kv_rows`, computed here when not given)."""
+    if isinstance(cache, QuantisedKV):
+        B, T, K, hd = new.shape
+        if dest is None:
+            dest = kv_rows(rows, slots, cache.codes.shape[1], K)
+        kops.block_quant(new.reshape(B * T * K, hd).contiguous(), codebook,
+                         block=hd, pack=codebook_bits(codebook) == 4,
+                         out=(cache.codes, cache.scales), rows=dest)
+    else:
+        cache[rows, slots] = new.to(cache.dtype)
     return cache
 
 
+def update_kv_cache(cache, new, pos, *, ring=False, codebook=None):
+    """Write T new entries per batch row at that row's own position, **in
+    place**: cache (B, S, K, hd) — or a :class:`QuantisedKV`, whose new rows
+    are quantised at write time — is a view into the engine's (L, B, S, ...)
+    stack, so the stack itself is updated. new: (B, T, K, hd); pos: (B,).
+    Returns the cache."""
+    S = (cache.codes if isinstance(cache, QuantisedKV) else cache).shape[1]
+    rows, slots = cache_slots(pos, new.shape[1], S, ring=ring)
+    return write_kv(cache, new, rows, slots, codebook)
+
+
 class StepGeometry(NamedTuple):
-    """What every layer of one decode step shares, built once per step by
-    :func:`step_geometry`: the rope tables, the cache write coordinates and
-    the attention mask."""
-    rot: tuple            # rope_tables: (cos, sin), each (B, T, 1, hd)
-    rows: torch.Tensor    # (B, 1)
-    slots: torch.Tensor   # (B, T)
-    mask: torch.Tensor    # (B, T, 1, 1, S)
+    """What every layer of one cache group shares in one decode step, built
+    once per step and group by :func:`step_geometry`."""
+    rot: tuple                  # rope_tables: (cos, sin), each (B, T, 1, hd)
+    positions: torch.Tensor     # (B, T) int32 query positions
+    rows: torch.Tensor          # (B, 1) cache write rows
+    slots: torch.Tensor         # (B, T) cache write slots
+    window: int                 # 0 = global
+    ring: bool
+    mask: Optional[torch.Tensor]      # dense groups: (B, T, 1, 1, S)
+    dest: Optional[torch.Tensor]      # quantised groups: kv_rows
+    codebook: Optional[torch.Tensor]  # quantised groups: the KV codebook
 
 
-def step_geometry(pos, positions, S: int, cfg, *, window=0, ring=False):
+def step_geometry(pos, positions, rot, S: int, *, window=0, ring=False,
+                  kv_heads=1, codebook=None):
+    """The group's cache write coordinates and, for a dense group, its
+    attention mask; a quantised group (``codebook`` given) builds its masks
+    inside ``decode_attention_quant`` and takes the flat write rows."""
     rows, slots = cache_slots(pos, positions.shape[1], S, ring=ring)
-    return StepGeometry(rope_tables(positions, cfg.hd, cfg.rope_theta),
-                        rows, slots,
-                        attention_mask(positions, S, window=window,
-                                       ring=ring))
+    if codebook is None:
+        return StepGeometry(rot, positions, rows, slots, window, ring,
+                            attention_mask(positions, S, window=window,
+                                           ring=ring), None, None)
+    return StepGeometry(rot, positions, rows, slots, window, ring, None,
+                        kv_rows(rows, slots, S, kv_heads), codebook)
 
 
 def attn_decode(x, p: AttnParams, k_cache, v_cache, geo: StepGeometry, cfg):
     """One attention sub-block of the decode step: project, write the new
-    k/v into the caches in place, attend, project out."""
+    k/v into the caches in place (quantising them for a quantised group),
+    attend, project out."""
     q, k_new, v_new = qkv_project(x, p, geo.rot, cfg)
-    k_cache[geo.rows, geo.slots] = k_new.to(k_cache.dtype)
-    v_cache[geo.rows, geo.slots] = v_new.to(v_cache.dtype)
-    o = attend(q, k_cache, v_cache, geo.mask)
+    write_kv(k_cache, k_new, geo.rows, geo.slots, geo.codebook, geo.dest)
+    write_kv(v_cache, v_new, geo.rows, geo.slots, geo.codebook, geo.dest)
+    if geo.mask is not None:
+        o = attend(q, k_cache, v_cache, geo.mask)
+    else:
+        o = chunked_decode_attention(q, k_cache, v_cache, geo.positions,
+                                     window=geo.window, ring=geo.ring,
+                                     codebook=geo.codebook)
     return linear(o, p.wo, "btnh,nhd->btd")
 
 

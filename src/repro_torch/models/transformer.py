@@ -5,10 +5,12 @@ layouts.
 Parameters keep the reference's stacked layout (``params["layers"][key]``
 has a leading L dim), so checkpoints carry across unchanged. The
 reference's ``lax.scan`` over layers is a Python loop here: layer ``l``
-takes views ``[l]`` of the stacked weights (``PackedTensor.layer``) and of
-the (L, B, S, K, hd) cache stacks, and writes its new k/v into those views
-in place. This slice serves homogeneous all-global stacks with dense
-layers; MoE experts, windowed (ring) layer groups, tied embeddings and the
+takes views ``[l]`` of the stacked weights (``PackedTensor.layer``) and,
+at its group-local slot, of its cache group's (L_g, B, S, K, ·) stacks, and
+writes its new k/v into those views in place. Layer groups may be global
+(linear caches) or windowed (ring caches, gemma3's local layers), dense or
+quantised (q8/q4 codes with per-row scales). Tied embeddings serve the
+logits from the packed embedding table. MoE experts and the
 teacher-forcing ``apply`` come with later slices and raise here.
 """
 from __future__ import annotations
@@ -19,8 +21,9 @@ from repro_torch.core.tensor_format import PackedTensor
 
 from .api import (ModelConfig, ModelFamily, ParamSpec, init_from_specs,
                   register_family, ring_prologue, torch_dtype)
-from .layers import (AttnParams, MlpParams, attn_decode, embed_lookup,
-                     linear, rms_norm, step_geometry, swiglu)
+from .layers import (AttnParams, MlpParams, QuantisedKV, attn_decode,
+                     embed_lookup, linear, rms_norm, rope_tables,
+                     step_geometry, swiglu)
 
 
 # ---------------------------------------------------------------------------
@@ -104,48 +107,72 @@ def _layer(lp: dict, i: int) -> dict:
             for k, v in lp.items()}
 
 
+def _at(cache, j: int):
+    """Slot ``j`` of a group's cache stack, as a view."""
+    if isinstance(cache, QuantisedKV):
+        return QuantisedKV(cache.codes[j], cache.scales[j])
+    return cache[j]
+
+
 def decode_step(params, state, batch, cfg: ModelConfig):
-    """Chunked decode step with per-slot positions (the ragged protocol).
+    """Chunked decode step with per-slot positions (the ragged protocol)
+    and grouped caches.
 
     batch: {"tokens": (B, T) int, "t_valid": optional (B,) int32, "reset":
     optional (B,) bool}. Each row writes its T new k/v at its own
     ``state["pos"][b]`` and advances by ``t_valid[b]`` (default T); a set
-    ``reset`` bit zeroes that slot's KV rows and position first
-    (``ring_prologue``). The cache stacks in ``state`` are updated **in
-    place**; the returned state holds the same tensors and the new ``pos``.
-    Returns (logits (B, T, V) float32, state)."""
-    from repro_torch.serve.cache import layer_groups, parse_kv_formats
+    ``reset`` bit zeroes that slot's KV rows (codes and scales of quantised
+    groups) and position first (``ring_prologue``). Windowed groups write
+    their ring at ``pos % length`` and mask by reconstructed positions;
+    global groups keep the linear full-length cache. The cache stacks in
+    ``state`` are updated **in place**; the returned state holds the same
+    tensors and the new ``pos``. Returns (logits (B, T, V) float32,
+    state)."""
+    from repro_torch.serve.cache import (kv_codebook, layer_groups,
+                                         parse_kv_formats)
     tokens = batch["tokens"]
     B, T = tokens.shape
     dt = torch_dtype(cfg.dtype)
     groups = layer_groups(cfg.window_pattern())
-    if len(groups) != 1 or groups[0][0] != 0:
-        raise NotImplementedError(
-            f"{cfg.name}: windowed (ring) layer groups are not ported yet; "
-            "this slice serves all-global attention stacks")
     fmts = parse_kv_formats(cfg.kv_format, len(groups), cfg.hd)
     pos, adv, _, st = ring_prologue(state, batch, len(groups), formats=fmts)
     x = embed_lookup(params["embed"], tokens, dtype=dt)
     positions = pos[:, None] + torch.arange(T, dtype=torch.int32,
                                             device=tokens.device)[None]
-    k_all, v_all = st["k0"], st["v0"]
-    # rope tables, cache write slots and the mask are the same for every
-    # layer: built once per step
-    geo = step_geometry(pos, positions, k_all.shape[2], cfg)
+    # rope tables, and per group its write coordinates and masks, are the
+    # same for every layer: built once per step
+    rot = rope_tables(positions, cfg.hd, cfg.rope_theta)
+    caches, geos, where = [], [], {}
+    for g, (window, layers) in enumerate(groups):
+        if fmts[g] == "f32":
+            caches.append((st[f"k{g}"], st[f"v{g}"]))
+            cb = None
+        else:
+            caches.append((QuantisedKV(st[f"k{g}"], st[f"k{g}s"]),
+                           QuantisedKV(st[f"v{g}"], st[f"v{g}s"])))
+            cb = kv_codebook(fmts[g], tokens.device)
+        geos.append(step_geometry(pos, positions, rot, st[f"k{g}"].shape[2],
+                                  window=window, ring=window > 0,
+                                  kv_heads=cfg.n_kv_heads, codebook=cb))
+        where.update({layer: (g, j) for j, layer in enumerate(layers)})
     for i in range(cfg.n_layers):
+        g, j = where[i]
         lp = _layer(params["layers"], i)
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
         attn = AttnParams(lp["wq"], lp["wk"], lp["wv"], lp["wo"],
                           lp.get("q_norm"), lp.get("k_norm"))
-        x = x + attn_decode(h, attn, k_all[i], v_all[i], geo, cfg)
+        x = x + attn_decode(h, attn, _at(caches[g][0], j),
+                            _at(caches[g][1], j), geos[g], cfg)
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
         x = x + swiglu(h, MlpParams(lp["w_gate"], lp["w_up"], lp["w_down"]))
-    new_state = {"k0": k_all, "v0": v_all, "pos": pos + adv}
+    new_state = {**st, "pos": pos + adv}
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(x, params, cfg).float(), new_state
 
 
 def _unembed(x, params, cfg: ModelConfig):
+    """Logits through ``linear``: a tied table (V, D) contracts along its
+    blocked axis (``dequant_matmul_t`` when packed)."""
     if cfg.tie_embeddings:
         return linear(x, params["embed"], "btd,vd->btv")
     return linear(x, params["unembed"], "btd,dv->btv")
@@ -154,8 +181,9 @@ def _unembed(x, params, cfg: ModelConfig):
 def pack_layouts(cfg: ModelConfig) -> dict:
     """Matmul layouts for serving from packed quantised weights: tensor path
     → (n_lead, n_contract) — the reference's declarations for a dense
-    stack. The embedding table packs too (rows gather-dequantise through
-    ``embed_lookup``)."""
+    stack. The embedding table packs too, tied or not (rows
+    gather-dequantise through ``embed_lookup``; a tied table also serves
+    the logits through ``dequant_matmul_t``)."""
     lay = {
         "['layers']['wq']": (1, 1),
         "['layers']['wk']": (1, 1),

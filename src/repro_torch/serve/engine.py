@@ -39,11 +39,13 @@ from repro_torch.models.api import (ModelConfig, get_family, resolve_device,
 
 
 def alloc_decode_state(fam, cfg: ModelConfig, batch_slots: int, kv_len: int,
-                       *, slack: int, device):
+                       *, slack: int, device, windowed: bool = True):
     """Allocate zeroed decode state on ``device`` from the family's grouped
     cache specs (the one allocation the engine and :func:`greedy_generate`
-    share). ``slack`` is the prefill chunk length."""
-    specs = fam.decode_state_specs(cfg, batch_slots, kv_len, slack=slack)
+    share). ``slack`` is the prefill chunk length; ``windowed=False``
+    allocates every group at the full length."""
+    specs = fam.decode_state_specs(cfg, batch_slots, kv_len, slack=slack,
+                                   windowed=windowed)
     return {k: torch.zeros(s.shape, dtype=torch_dtype(s.dtype), device=device)
             for k, s in specs.items()}
 
@@ -95,14 +97,27 @@ class ServeEngine:
     """Fixed-slot continuous-batching decode engine on ``device`` (default
     the card; ``device="cpu"`` runs the plain torch path).
 
+    Decode state comes from the family's grouped cache specs: global groups
+    at ``kv_len`` (+ chunk slack), windowed groups as ring buffers of
+    ``window + slack`` slots, each dense or quantised per ``cfg.kv_format``.
+
     ``strict_admission`` (default True) rejects at ``submit`` a request
-    whose ``prompt + max_new_tokens`` exceeds ``kv_len``; with False such
-    requests are admitted and end early with ``Generation.truncated``."""
+    whose ``prompt + max_new_tokens`` exceeds ``kv_len`` — the global
+    groups' length: rings wrap and never overflow, so the budget is the same
+    with or without them. With False such requests are admitted and end
+    early with ``Generation.truncated``. Kill-switches: ``windowed_cache=
+    False`` allocates every group at the full length (the masked-full-cache
+    baseline), ``quantised_cache=False`` drops ``cfg.kv_format`` so every
+    group stores dense rows."""
 
     def __init__(self, cfg: ModelConfig, params, batch_slots: int = 4,
                  kv_len: int = 256, prefill_chunk: int = 8,
-                 strict_admission: bool = True, device=None):
+                 strict_admission: bool = True, windowed_cache: bool = True,
+                 quantised_cache: bool = True, device=None):
         self.device = resolve_device(device)
+        if not quantised_cache and cfg.kv_format:
+            cfg = cfg.replace(kv_format="")
+        self.windowed_cache = windowed_cache
         self.cfg = cfg
         self.fam = get_family(cfg.family)
         if not self.fam.supports_ragged:
@@ -153,7 +168,8 @@ class ServeEngine:
         with torch.inference_mode():
             return alloc_decode_state(self.fam, self.cfg, self.B,
                                       self.kv_len, slack=self.prefill_chunk,
-                                      device=self.device)
+                                      device=self.device,
+                                      windowed=self.windowed_cache)
 
     # ------------------------------------------------------------ accounting
     def weight_bytes(self) -> dict:
@@ -177,13 +193,15 @@ class ServeEngine:
 
     def cache_bytes(self) -> dict:
         """Resident decode-state bytes: ``total`` over the allocated state,
-        the family's cache geometry breakdown (``kv``, ``uniform_kv``,
-        ``cache_groups``, ...) and ``other`` (non-KV state, e.g. pos)."""
+        the family's cache geometry breakdown (``kv`` with its code/scale
+        split, ``dense_kv``, ``uniform_kv``, ``cache_groups``, ...) and
+        ``other`` (non-KV state, e.g. pos)."""
         total = sum(t.numel() * t.element_size()
                     for t in self._state.values())
         out = {"total": total, "family": self.cfg.family}
         spec = self.fam.cache_spec(self.cfg, self.B, self.kv_len,
-                                   slack=self.prefill_chunk)
+                                   slack=self.prefill_chunk,
+                                   windowed=self.windowed_cache)
         cb = spec.cache_bytes()
         out.update(cb)
         out["other"] = total - cb["kv"]

@@ -124,7 +124,7 @@ def test_cpu_call_takes_the_plain_version_and_counts_nothing():
 def test_cuda_wrapper_refuses_cpu_tensors(monkeypatch):
     """The kernel's wrapper never computes on the CPU: with the library
     stubbed in, CPU operands are refused, not served by the plain path."""
-    monkeypatch.setattr(dqm.build, "load_library", lambda: object())
+    monkeypatch.setattr(dqm.build, "load_library", lambda name: object())
     x = torch.zeros(2, 64)
     codes = torch.zeros(32, 128, dtype=torch.uint8)
     scales = torch.ones(64, 2, dtype=torch.bfloat16)

@@ -1,0 +1,187 @@
+"""On the card: the CUDA kernels of the quantised-KV and tied-unembed path
+(``block_quant``, ``decode_attention_quant``, ``dequant_matmul_t``) against
+their plain torch versions on the same inputs. Every test here needs an
+NVIDIA GPU and skips elsewhere; the file imports nothing of JAX, so it runs
+on a machine that has only the port.
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.nibble import pack_nibbles
+from repro_torch.kernels import ops
+from repro_torch.kernels.block_quant import block_quant as bq
+from repro_torch.kernels.block_quant.ref import (block_quant_ref, midpoints,
+                                                 pack_pairs)
+from repro_torch.kernels.decode_attention import decode_attention as daq
+from repro_torch.kernels.decode_attention.ref import \
+    decode_attention_quant_ref
+from repro_torch.kernels.dequant_matmul import dequant_matmul_t as dqmt
+from repro_torch.kernels.dequant_matmul.ref import dequant_matmul_t_ref
+from repro_torch.models.layers import quantise_kv
+from repro_torch.serve.cache import kv_bits, kv_codebook
+
+FMTS = ["q8", "q4"]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def hard_rows(rows, hd, cb, seed):
+    """Random rows plus the quantiser's edges: a zero row, absmaxes that
+    round down in bf16, values exactly on midpoints, a row of one sign."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, hd)).astype(np.float32)
+    mids = midpoints(cb).numpy()
+    x[1] = 0.0
+    x[2, 0] = np.float32(1.0 + 2.0 ** -10)
+    x[2, 1:] = np.clip(x[2, 1:], -1, 1)
+    x[3] = (mids[rng.integers(0, len(mids), hd)] * 2).astype(np.float32)
+    x[3, 0] = np.float32(2.0)
+    x[4] = np.abs(x[4])
+    return torch.from_numpy(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", FMTS)
+@pytest.mark.parametrize("hd,rows", [(32, 24), (64, 8), (256, 32),
+                                     (256, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_quant_kernel_bitwise(cuda_device, fmt, hd, rows, dtype):
+    cb = kv_codebook(fmt)
+    x = hard_rows(rows, hd, cb, seed=rows + hd).to(dtype)
+    before = bq.launches
+    codes, scales = ops.block_quant(x.to(cuda_device), cb.to(cuda_device),
+                                    block=hd)
+    torch.cuda.synchronize()
+    assert bq.launches == before + 1
+    want_c, want_s = block_quant_ref(x, cb, hd)
+    assert torch.equal(codes.cpu(), want_c)
+    assert torch.equal(scales.cpu(), want_s)
+    if fmt == "q4":   # the fused pack + scatter writes the same bytes
+        buf_c = torch.zeros(rows + 5, hd // 2, dtype=torch.uint8,
+                            device=cuda_device)
+        buf_s = torch.zeros(rows + 5, 1, device=cuda_device)
+        dest = torch.randperm(rows + 5)[:rows].to(cuda_device)
+        ops.block_quant(x.to(cuda_device), cb.to(cuda_device), block=hd,
+                        pack=True, out=(buf_c, buf_s), rows=dest)
+        assert torch.equal(buf_c[dest].cpu(), pack_pairs(want_c))
+        assert torch.equal(buf_s[dest].cpu(), want_s)
+
+
+ATTN_CASES = {
+    # name: (S, T, window, ring, positions (B, T))
+    "linear": (24, 1, 0, False, [[23], [17]]),
+    "window": (24, 1, 7, False, [[20], [19]]),
+    "ring_wrapped": (24, 1, 8, True, [[27], [40]]),
+    "ragged_chunk": (24, 4, 0, False, [[4, 5, 6, 7], [0, 1, 2, 3]]),
+    "ring_chunk": (20, 4, 16, True, [[30, 31, 32, 33], [2, 3, 4, 5]]),
+    "gemma3_ring": (520, 8, 512, True, [[600 + t for t in range(8)],
+                                        [3 + t for t in range(8)]]),
+    "gemma3_global": (1032, 1, 0, False, [[1000], [7]]),
+}
+
+
+def attn_inputs(name, fmt, dtype, H=4, K=2, hd=16):
+    S, T, window, ring, positions = ATTN_CASES[name]
+    if name.startswith("gemma3"):
+        H, K, hd = 4, 1, 256
+    rng = np.random.default_rng(list(ATTN_CASES).index(name) * 2
+                                + FMTS.index(fmt))
+    cb = kv_codebook(fmt)
+    caches = []
+    for _ in range(2):
+        dense = torch.from_numpy(
+            rng.standard_normal((2, S, K, hd)).astype(np.float32))
+        caches += list(quantise_kv(dense, cb, kv_bits(fmt)))
+    q = torch.from_numpy(rng.standard_normal((2, T, H, hd)).astype(
+        np.float32)).to(dtype)
+    qp = torch.tensor(positions, dtype=torch.int32)
+    return (q, *caches, cb, qp), dict(window=window, ring=ring,
+                                      bits=kv_bits(fmt))
+
+
+def attn_tol(want, dtype):
+    """f32: 1e-5 relative (summation order). bf16: the plain version rounds
+    the dequantised K and the scores to bf16 (the reference's casts), the
+    kernel keeps them in f32, so 2e-2 of max|out|."""
+    scale = float(np.abs(want).max())
+    if dtype == torch.float32:
+        return dict(rtol=1e-5, atol=1e-5 * scale)
+    return dict(rtol=2e-2, atol=2e-2 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", FMTS)
+@pytest.mark.parametrize("name", list(ATTN_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel(cuda_device, fmt, name, dtype):
+    args, kw = attn_inputs(name, fmt, dtype)
+    before = daq.launches
+    got = ops.decode_attention_quant(*[a.to(cuda_device) for a in args],
+                                     kw["window"], ring=kw["ring"],
+                                     bits=kw["bits"])
+    torch.cuda.synchronize()
+    assert daq.launches == before + 1
+    want = decode_attention_quant_ref(*args, **kw).float().numpy()
+    assert got.dtype == dtype and np.isfinite(got.float().cpu().numpy()).all()
+    np.testing.assert_allclose(got.float().cpu().numpy(), want,
+                               **attn_tol(want, dtype))
+
+
+def mt_args(M, V, D, bits, block, seed, dtype, device):
+    rng = np.random.default_rng(seed)
+    n_codes = 16 if bits == 4 else 256
+    codes = torch.from_numpy(rng.integers(0, n_codes, (V, D)).astype(
+        np.uint8))
+    if bits == 4:
+        codes = pack_nibbles(codes)     # interleaved along V
+    scales = (torch.from_numpy(np.abs(rng.standard_normal(
+        (V, D // block))).astype(np.float32)) * 0.05 + 0.01)
+    cb = torch.from_numpy(np.sort(rng.standard_normal(n_codes)).astype(
+        np.float32))
+    x = torch.from_numpy(rng.standard_normal((M, D)).astype(np.float32))
+    return (x.to(dtype).to(device), codes.to(device),
+            scales.to(torch.bfloat16).to(device), cb.to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 5, 32, 40])
+@pytest.mark.parametrize("bits,block", [(4, 32), (4, 64), (4, 128),
+                                        (8, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dequant_matmul_t_kernel(cuda_device, M, bits, block, dtype):
+    args = mt_args(M, 1024, 1152, bits, block, M + bits + block, dtype,
+                   cuda_device)
+    before = dqmt.launches
+    y = ops.dequant_matmul_t(*args, block=block, bits=bits)
+    torch.cuda.synchronize()
+    assert dqmt.launches == before + 1
+    want = dequant_matmul_t_ref(*args, block, bits).float().cpu().numpy()
+    scale = float(np.abs(want).max())
+    tol = (dict(rtol=1e-5, atol=1e-5 * scale) if dtype == torch.float32
+           else dict(rtol=1.6e-2, atol=1e-2 * scale))
+    np.testing.assert_allclose(y.float().cpu().numpy(), want, **tol)
+
+
+@pytest.mark.cuda
+def test_kernels_raise_on_bad_operands(cuda_device):
+    cb = kv_codebook("q8").to(cuda_device)
+    with pytest.raises(ValueError, match="tile by block"):
+        ops.block_quant(torch.zeros(4, 30, device=cuda_device), cb, block=32)
+    args, kw = attn_inputs("linear", "q8", torch.float32)
+    args = [a.to(cuda_device) for a in args]
+    with pytest.raises(ValueError, match="q_positions"):
+        ops.decode_attention_quant(*args[:-1], args[-1].long(), 0, bits=8)
+    x, codes, scales, cb4 = mt_args(2, 256, 64, 4, 32, 0, torch.float32,
+                                    cuda_device)
+    with pytest.raises(ValueError, match="scales"):
+        ops.dequant_matmul_t(x, codes, scales[:, :1].contiguous(), cb4,
+                             block=32, bits=4)

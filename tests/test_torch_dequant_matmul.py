@@ -11,7 +11,7 @@ import torch
 
 from repro_torch.core.nibble import pack_nibbles
 from repro_torch.kernels import ops
-from repro_torch.kernels.dequant_matmul import build
+from repro_torch.kernels import build
 from repro_torch.kernels.dequant_matmul import dequant_matmul as dqm
 from repro_torch.kernels.dequant_matmul.ref import dequant_matmul_ref
 
@@ -138,8 +138,8 @@ class TestDispatch:
                                                              monkeypatch):
         """No fallback: a CUDA call whose library cannot load raises, and
         the plain result is never returned in its place."""
-        def fail():
-            raise RuntimeError("dequant_matmul: nvcc not found")
+        def fail(name):
+            raise RuntimeError(f"{name}: nvcc not found")
         monkeypatch.setattr(build, "load_library", fail)
         ops_np = make_case(3, 256, 128, 4, 64, seed=6)
         args = torch_operands(*ops_np, 4, torch.float32)

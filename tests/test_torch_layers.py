@@ -111,10 +111,25 @@ def test_linear_packed_and_dense():
                              "btd,dnh->btnh")), rtol=1e-5, atol=1e-5)
 
 
+def test_linear_transposed_packed_matches_reference():
+    """The transposed orientation (the tied unembed) serves through
+    dequant_matmul_t, as the reference's linear does."""
+    jp, tp = _packed_pair(128, 256)
+    x = rng(15).standard_normal((2, 3, 256)).astype(np.float32)
+    got = tl.linear(t(x), tp, "btd,vd->btv")
+    want = jl.linear(jnp.asarray(x), jp, "btd,vd->btv")
+    assert tuple(got.shape) == (2, 3, 128)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
 def test_linear_refuses_the_transposed_packed_orientation():
+    """In the transposed orientation linear refuses an activation whose
+    width is not the packed table's contracting width (the name dates from
+    when the orientation itself was refused)."""
     _, tp = _packed_pair(128, 256)
-    with pytest.raises(NotImplementedError, match="dequant_matmul_t"):
-        tl.linear(torch.zeros(1, 1, 256), tp, "btd,vd->btv")
+    with pytest.raises(RuntimeError):
+        tl.linear(torch.zeros(1, 1, 128), tp, "btd,vd->btv")
 
 
 @pytest.mark.parametrize("spec", ["btd,df->btf", "btnh,nhd->btd",
@@ -148,9 +163,10 @@ def test_ring_index_math():
 
 @pytest.mark.parametrize("windows", [[0, 0, 0, 0], [4, 4, 0, 4, 4, 0]])
 @pytest.mark.parametrize("windowed", [True, False])
-def test_cache_spec_and_bytes(windows, windowed):
+@pytest.mark.parametrize("formats", [None, "q8", "q4"])
+def test_cache_spec_and_bytes(windows, windowed, formats):
     kw = dict(slack=8, kv_heads=2, head_dim=16, dtype="bfloat16",
-              windowed=windowed)
+              windowed=windowed, formats=formats)
     spec = tcache.build_cache_spec(windows, 4, 64, **kw)
     jspec = jcache.build_cache_spec(windows, 4, 64, **kw)
     assert spec.cache_bytes() == jspec.cache_bytes()
@@ -165,8 +181,11 @@ def test_kv_formats():
     assert tcache.parse_kv_formats("", 2, 16) == \
         jcache.parse_kv_formats("", 2, 16)
     assert tcache.parse_kv_formats("f32", 2, 16) == ("f32", "f32")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tcache.parse_kv_formats("q8", 2, 16)
+    for fmts in ("q8", "q4", "q8,f32", ["q4", "q8"]):
+        assert tcache.parse_kv_formats(fmts, 2, 16) == \
+            jcache.parse_kv_formats(fmts, 2, 16)
+    with pytest.raises(ValueError, match="even"):
+        tcache.parse_kv_formats("q4", 2, 15)
     with pytest.raises(ValueError, match="unknown kv format"):
         tcache.parse_kv_formats("q3", 2, 16)
 
