@@ -6,13 +6,16 @@ Phases, each printed as JSON lines:
 
 1. device: the card's name and power limit (nvidia-smi), then the build of
    every CUDA kernel from ``src/repro_torch`` sources (one nvcc per source,
-   in parallel), with registers and spills per library.
+   in parallel), with registers and spills per library, and the count of
+   tensor-core (HMMA) instructions in the ``dequant_matmul`` library
+   (``cuobjdump -sass``), which must not be 0.
 2. kernel: each kernel against its plain torch version on the card, with the
    kernel's, the plain version's and one library call's times beside the
    least time the card could take:
    ``dequant_matmul`` at every projection shape of paper-100m, deepseek-7b
    and gemma3-1b (M = 1, 4, 32 at 4 bits, one 8-bit shape, one lead-dim
-   case); ``dequant_matmul_t`` at gemma3-1b's tied unembed (262144 x 1152,
+   case), each called twice with bitwise-equal results, with its tile
+   width, K splits, registers and blocks per SM; ``dequant_matmul_t`` at gemma3-1b's tied unembed (262144 x 1152,
    M = 1, 4, 32, and 8-bit); ``block_quant`` at hd 256 and 64, rows 4, 32
    and 256, q8 and q4 (bitwise); ``decode_attention_quant`` at gemma3-1b's
    shapes (ring S = 520 and linear S = 1032, T = 1 and 8, q8 and q4, a
@@ -39,6 +42,7 @@ import dataclasses
 import importlib
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -172,22 +176,29 @@ def matmul_case(mods, dev, gen, cb, flush, K, N, M, bits, lead=None):
         codes = pack_nibbles(codes).contiguous()
     scales = (torch.rand(pre + (K, N // block), generator=gen, device=dev)
               * 0.05 + 0.01).to(torch.bfloat16)
-    kern = mods["dequant_matmul"].dequant_matmul_cuda
+    mod = mods["dequant_matmul"]
+    kern = mod.dequant_matmul_cuda
     y = kern(x, codes, scales, cb, block, bits)
+    y_again = kern(x, codes, scales, cb, block, bits)
     y_plain = ref.dequant_matmul_ref(x, codes, scales, cb, block, bits)
     torch.cuda.synchronize()
+    check(torch.equal(y, y_again), f"dequant_matmul {K}x{N} M={M}: two calls "
+          "on the same inputs differ")
     scale = float(y_plain.float().abs().max())
     torch.testing.assert_close(y.float(), y_plain.float(), rtol=1.6e-2,
                                atol=1e-2 * scale)
     err = float((y.float() - y_plain.float()).abs().max())
     w = ref.dequant_weight(codes, scales, cb, block, bits).to(torch.bfloat16)
     E = lead or 1
+    _, geo, _, _ = mod._geometry(True, E, M, K, N, bits, 8, dev.index or 0)
     nbytes = E * (K * N * bits // 8 + K * (N // block) * 2 + M * K * 2
                   + M * N * 2)
     flops = 2 * E * M * K * N
     out = dict(
         K=K, N=N, M=M, bits=bits, lead=lead, bytes=nbytes, flops=flops,
-        bound_ms=bound_ms(nbytes, flops),
+        bound_ms=bound_ms(nbytes, flops), bitwise_repeat=True,
+        vec=geo.vec, splits=geo.splits,
+        blocks=geo.tiles * geo.splits * E, **mod.mma_info(bits, M, geo.vec),
         kernel_ms=time_ms(lambda: kern(x, codes, scales, cb, block, bits),
                           flush),
         plain_ms=time_ms(lambda: ref.dequant_matmul_ref(
@@ -780,6 +791,20 @@ def ptxas_summary(build_dir):
     return out
 
 
+def sass_check(build_dir):
+    """Tensor-core instructions in the built dequant_matmul library
+    (``cuobjdump -sass``, CUDA toolkit): HMMA must be there."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = build_dir / "libdequant_matmul.so"
+    r = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                       text=True, timeout=300)
+    check(r.returncode == 0, f"cuobjdump -sass {lib} failed: {r.stderr}")
+    hmma = [ln for ln in r.stdout.splitlines() if "HMMA" in ln]
+    emit(phase="sass", library="dequant_matmul", hmma_instructions=len(hmma),
+         example=hmma[0].strip() if hmma else None)
+    check(hmma, "the dequant_matmul library has no HMMA instruction")
+
+
 def per_step(rows, pick, launches):
     """Σ over the picked shapes of (per-call number x launches per step);
     None where a shape has no such number (no library call)."""
@@ -864,6 +889,7 @@ def main() -> int:
          ptxas=ptxas_summary(build.build_dir()),
          torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0))
+    sass_check(build.build_dir())
 
     rows = kernel_phase(mods, dev)
     emit(phase="timing", kernel_phase_end_s=time.monotonic() - t_start)

@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # library name -> (its C launch function, that function's argument types)
 SIGNATURES = {
-    "dequant_matmul": ("dequant_matmul_launch", [_P] * 6 + [_I] * 10 + [_P]),
+    "dequant_matmul": ("dequant_matmul_launch",
+                       [_P] * 8 + [_I] * 11 + [_P]),
     "dequant_matmul_t": ("dequant_matmul_t_launch",
                          [_P] * 5 + [_I] * 10 + [_P]),
     "block_quant": ("block_quant_launch", [_P] * 5 + [_I] * 7 + [_P]),

@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.nibble import pack_nibbles
+from repro_torch.core.nibble import pack_nibbles, unpack_nibbles
 from repro_torch.kernels import ops
 from repro_torch.kernels import build
 from repro_torch.kernels.dequant_matmul import dequant_matmul as dqm
@@ -155,12 +155,88 @@ class TestDispatch:
             build.find_nvcc()
 
     def test_splits_fill_the_card_within_the_chunk_count(self):
-        # paper-100m wk (K=768, N=256) at decode: 2 column tiles, 3 chunks
-        assert dqm.choose_splits(1, 4, 768, 256, 4, 256, 4, 132) == 3
+        """bf16 (tensor cores): 16*vec columns a block, K split into one
+        wave of blocks (two per SM), never more splits than 64-pair
+        chunks."""
+        geo = dqm.mma_geometry
+        # paper-100m wk (K=768, N=256) at decode: 4 column tiles, 6 chunks
+        g = geo(1, 4, 768, 256, 4, 132)
+        assert (g.vec, g.m_tile, g.col_tiles, g.chunks, g.splits) == \
+            (4, 8, 4, 6, 6)
+        assert g.workspace_floats(1) == 6 * 4 * 8 * 64 and g.counters(1) == 4
         # deepseek-7b unembed: 800 column tiles already fill 132 SMs
+        g = geo(1, 4, 4096, 102400, 4, 132)
+        assert (g.vec, g.splits, g.workspace_floats(1), g.counters(1)) == \
+            (8, 1, 0, 0)
+        # deepseek-7b wq: 32 column tiles, 32 chunks, 8 splits (256 blocks)
+        g = geo(1, 4, 4096, 4096, 4, 132)
+        assert (g.vec, g.col_tiles, g.chunks, g.splits) == (8, 32, 32, 8)
+        # gemma3-1b w_gate at prefill (M=32): 4-byte loads, 108 tiles x 2
+        g = geo(1, 32, 1152, 6912, 4, 132)
+        assert (g.vec, g.m_tile, g.col_tiles, g.splits) == (4, 32, 108, 2)
+        # M=12: two n8-tiles; 8-bit codes pair two byte rows
+        g = geo(1, 12, 4096, 4096, 8, 132)
+        assert (g.vec, g.m_tile, g.chunks, g.splits) == (4, 16, 32, 4)
+        # M > 32 takes M tiles; codes aligned to 4 bytes take 4-byte loads
+        assert geo(1, 4, 4096, 4096, 4, 132, max_vec=4).vec == 4
+        g = geo(2, 40, 2048, 384, 4, 132)
+        assert (g.vec, g.m_tile, g.m_tiles, g.col_tiles, g.splits) == \
+            (4, 32, 2, 6, 11)
+        assert g.workspace_floats(2) == 11 * 2 * 12 * 32 * 64
+        assert g.counters(2) == 24
+        # f32 (CUDA cores): 128 columns a block
+        assert dqm.choose_splits(1, 4, 768, 256, 4, 256, 4, 132) == 3
         assert dqm.choose_splits(1, 4, 4096, 102400, 4, 256, 4, 132) == 1
-        # deepseek-7b wq: 32 column tiles, 16 chunks, 9 splits for 264 blocks
         assert dqm.choose_splits(1, 4, 4096, 4096, 4, 256, 4, 132) == 9
+
+
+class TestDequantTable:
+    """The tensor-core kernel's byte -> bf16x2 table, bitwise against
+    unpacking the byte and casting the codebook to bf16."""
+
+    @staticmethod
+    def halves(table):
+        w = table.to(torch.int64) & 0xFFFFFFFF
+        return w & 0xFFFF, w >> 16
+
+    @staticmethod
+    def bf16_bits(v):
+        return v.to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
+
+    @pytest.mark.parametrize("n_codes", [16, 11])
+    def test_nibble_table(self, n_codes):
+        cb = torch.from_numpy(np.sort(
+            np.random.default_rng(n_codes).standard_normal(n_codes))
+            .astype(np.float32))
+        table = dqm.dequant_table(cb, 4)
+        assert table.dtype == torch.int32 and table.shape == (256,)
+        # one byte row of 256 columns: every byte value once
+        codes = unpack_nibbles(torch.arange(256, dtype=torch.uint8)[None],
+                               2)
+        cbp = torch.zeros(16)
+        cbp[:n_codes] = cb
+        lo, hi = self.halves(table)
+        assert torch.equal(lo, self.bf16_bits(cbp[codes[0].long()]))
+        assert torch.equal(hi, self.bf16_bits(cbp[codes[1].long()]))
+
+    @pytest.mark.parametrize("n_codes", [256, 100])
+    def test_byte_table(self, n_codes):
+        cb = torch.from_numpy(np.random.default_rng(n_codes).standard_normal(
+            n_codes).astype(np.float32))
+        lo, hi = self.halves(dqm.dequant_table(cb, 8))
+        want = torch.zeros(256, dtype=torch.int64)
+        want[:n_codes] = self.bf16_bits(cb)
+        assert torch.equal(lo, want) and not hi.any()
+
+    def test_table_is_cached_per_codebook_and_rebuilt_on_write(self):
+        cb = torch.linspace(-1, 1, 16)
+        t1 = dqm._table(cb, 4)
+        assert dqm._table(cb, 4) is t1
+        cb[3] = 5.0
+        t2 = dqm._table(cb, 4)
+        assert t2 is not t1 and torch.equal(t2, dqm.dequant_table(cb, 4))
+        assert not torch.equal(t1, t2)
+        assert dqm._table(cb, 8) is not t2   # bits are part of the key
 
 
 # ---------------------------------------------------------------------------
@@ -183,6 +259,17 @@ CUDA_CASES = [
     (32, 64, 128, 4, 64, None), (1, 11008, 512, 4, 64, None),
     (4, 768, 256, 8, 64, None), (16, 704, 384, 8, 128, None),
     (5, 256, 128, 4, 64, 3), (2, 256, 256, 8, 32, 2),
+    # the tensor-core kernel's edges: every n8-tile count, nibble tiles of
+    # 704 and 1152 rows (half-tiles of 352 and 576 pairs), N not a multiple
+    # of 128 or of a block's 16*vec columns, K splits, odd K at 8 bits,
+    # M past one M tile
+    (1, 6912, 1152, 4, 64, None), (5, 1152, 416, 4, 32, None),
+    (8, 64, 96, 4, 32, None), (17, 6912, 256, 4, 128, None),
+    (32, 1152, 6912, 4, 64, None), (32, 704, 160, 8, 32, None),
+    (3, 1152, 1024, 8, 128, None), (17, 64, 2048, 8, 64, None),
+    (8, 704, 4096, 4, 128, None), (5, 6912, 96, 8, 32, None),
+    (1, 1152, 288, 8, 32, 2), (32, 6912, 416, 4, 32, 2),
+    (3, 31, 64, 8, 32, None), (40, 256, 384, 4, 64, None),
 ]
 
 
@@ -206,3 +293,60 @@ def test_kernel_matches_plain_on_card(cuda_device, M, K, N, bits, block,
     np.testing.assert_allclose(y.float().cpu().numpy(), ref, **t)
     # K-split partials are summed in a fixed order: reruns are bitwise equal
     assert torch.equal(y, ops.dequant_matmul(*args, block=block, bits=bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,bits", [(4, 11008, 512, 4), (4, 4096, 4096, 4),
+                                        (32, 6912, 1152, 4),
+                                        (4, 4096, 1024, 8)])
+def test_split_k_calls_are_bitwise_equal(cuda_device, M, K, N, bits):
+    """The K splits are combined inside the launch in split order: calls on
+    the same inputs give bitwise-equal outputs, and the combine leaves every
+    counter of the workspace at 0."""
+    ops_np = make_case(M, K, N, bits, 64, seed=K + N)
+    args = torch_operands(*ops_np, bits, torch.bfloat16, device=cuda_device)
+    _, geo, _, _ = dqm._geometry(True, 1, M, K, N, bits, 8,
+                                 cuda_device.index or 0)
+    assert geo.splits > 1
+    ys = [ops.dequant_matmul(*args, block=64, bits=bits) for _ in range(5)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(ys[0], y) for y in ys[1:])
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    counters = dqm._workspaces[(ys[0].device.index, stream)][1]
+    assert not counters.any()
+    y_plain = dequant_matmul_ref(*args, 64, bits)
+    ref = y_plain.float().cpu().numpy()
+    t = tol(ref, torch.bfloat16)
+    t["rtol"] = 1.6e-2
+    np.testing.assert_allclose(ys[0].float().cpu().numpy(), ref, **t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [4, 8])
+def test_codes_aligned_to_4_bytes_take_narrower_loads(cuda_device, offset):
+    """Codes that are 4-byte but not 8-byte aligned (a view into a larger
+    buffer) run with 4-byte code loads, 8-byte aligned ones with 8-byte
+    loads, with the same result."""
+    M, K, N, bits = 4, 1152, 4096, 4
+    x, codes, scales, cb = torch_operands(
+        *make_case(M, K, N, bits, 64, seed=offset), bits, torch.bfloat16,
+        device=cuda_device)
+    buf = torch.empty(codes.numel() + 32, dtype=torch.uint8,
+                      device=cuda_device)
+    base = -buf.data_ptr() % 16 + offset
+    shifted = buf[base:base + codes.numel()].view(codes.shape)
+    shifted.copy_(codes)
+    assert shifted.data_ptr() % 16 == offset
+    # 8-byte code loads where the codes are 8-byte aligned, else 4
+    assert dqm._geometry(True, 1, M, K, N, bits, 8, 0)[1].vec == 8
+    assert dqm._geometry(True, 1, M, K, N, bits, offset, 0)[1].vec == offset
+    y = ops.dequant_matmul(x, shifted, scales, cb, block=64, bits=bits)
+    y_aligned = ops.dequant_matmul(x, codes, scales, cb, block=64, bits=bits)
+    torch.cuda.synchronize()
+    y_plain = dequant_matmul_ref(x, codes, scales, cb, 64, bits)
+    ref = y_plain.float().cpu().numpy()
+    t = tol(ref, torch.bfloat16)
+    t["rtol"] = 1.6e-2
+    np.testing.assert_allclose(y.float().cpu().numpy(), ref, **t)
+    np.testing.assert_allclose(y_aligned.float().cpu().numpy(), ref, **t)
+
