@@ -6,17 +6,21 @@ Phases, each printed as JSON lines:
 
 1. device: the card's name and power limit (nvidia-smi), then the build of
    every CUDA kernel from ``src/repro_torch`` sources (one nvcc per source,
-   in parallel), with registers and spills per library, and the count of
-   tensor-core (HMMA) instructions in the ``dequant_matmul`` library
-   (``cuobjdump -sass``), which must not be 0.
+   in parallel), with registers and spills per library and per instance of
+   the ``dequant_matmul_t`` tensor-core kernel, and the count of
+   tensor-core (HMMA) instructions in the ``dequant_matmul`` and
+   ``dequant_matmul_t`` libraries (``cuobjdump -sass``), which must not be
+   0.
 2. kernel: each kernel against its plain torch version on the card, with the
    kernel's, the plain version's and one library call's times beside the
    least time the card could take:
    ``dequant_matmul`` at every projection shape of paper-100m, deepseek-7b
    and gemma3-1b (M = 1, 4, 32 at 4 bits, one 8-bit shape, one lead-dim
    case), each called twice with bitwise-equal results, with its tile
-   width, K splits, registers and blocks per SM; ``dequant_matmul_t`` at gemma3-1b's tied unembed (262144 x 1152,
-   M = 1, 4, 32, and 8-bit); ``block_quant`` at hd 256 and 64, rows 4, 32
+   width, K splits, registers and blocks per SM; ``dequant_matmul_t`` at
+   gemma3-1b's tied unembed (262144 x 1152, M = 1, 4, 32, and 8-bit), each
+   called twice with bitwise-equal results, with its registers, blocks per
+   SM and its time at each depth of the register ring; ``block_quant`` at hd 256 and 64, rows 4, 32
    and 256, q8 and q4 (bitwise); ``decode_attention_quant`` at gemma3-1b's
    shapes (ring S = 520 and linear S = 1032, T = 1 and 8, q8 and q4, a
    wrapped ring).
@@ -29,7 +33,8 @@ Phases, each printed as JSON lines:
    groups' 520-slot rings, held step by step to the same request served
    with full-length caches (no ring); launch counts of all four kernels,
    resident weight and KV bytes, card-vs-CPU logits. Then the same 4
-   requests with a q4 cache.
+   requests with a q4 cache, whose prefill step and first three decode
+   steps are held to the CPU plain path on the same q4 cache.
 6. the kernels summary line, then ``{"ok": true, "device": ...}``.
 
 Every count of kernel launches is set to 0 just before a serve run and read
@@ -222,10 +227,14 @@ def matmul_t_case(mods, dev, gen, cb, flush, V, D, M, bits):
         codes = pack_nibbles(codes).contiguous()   # interleaved along V
     scales = (torch.rand(V, D // block, generator=gen, device=dev) * 0.05
               + 0.01).to(torch.bfloat16)
-    kern = mods["dequant_matmul_t"].dequant_matmul_t_cuda
+    mod = mods["dequant_matmul_t"]
+    kern = mod.dequant_matmul_t_cuda
     y = kern(x, codes, scales, cb, block, bits)
+    y_again = kern(x, codes, scales, cb, block, bits)
     y_plain = ref.dequant_matmul_t_ref(x, codes, scales, cb, block, bits)
     torch.cuda.synchronize()
+    check(torch.equal(y, y_again), f"dequant_matmul_t M={M} bits={bits}: "
+          "two calls on the same inputs differ")
     scale = float(y_plain.float().abs().max())
     torch.testing.assert_close(y.float(), y_plain.float(), rtol=1.6e-2,
                                atol=1e-2 * scale)
@@ -234,9 +243,15 @@ def matmul_t_case(mods, dev, gen, cb, flush, V, D, M, bits):
         torch.bfloat16)
     nbytes = V * D * bits // 8 + V * (D // block) * 2 + M * D * 2 + M * V * 2
     flops = 2 * M * V * D
+    # the one knob: chunks in the register ring (the wrapper's default is
+    # the kernel_ms row)
+    ring_ms = {r: time_ms(lambda r=r: mod.launch_tc(x, codes, scales, cb,
+                                                    block, bits, ring=r),
+                          flush) for r in (2, 3, 4)}
     out = dict(
         V=V, D=D, M=M, bits=bits, bytes=nbytes, flops=flops,
-        bound_ms=bound_ms(nbytes, flops),
+        bound_ms=bound_ms(nbytes, flops), bitwise_repeat=True,
+        **mod.tc_info(bits, M, D, block), ring_ms=ring_ms,
         kernel_ms=time_ms(lambda: kern(x, codes, scales, cb, block, bits),
                           flush),
         plain_ms=time_ms(lambda: ref.dequant_matmul_t_ref(
@@ -439,11 +454,15 @@ def quantise_leaf_by_leaf(plan, tree, prefix=""):
 
 class StepRecorder:
     """Wraps a family's decode_step: records each step's positions, batch,
-    logits (to the host) and wall time after a device synchronise."""
+    logits (to the host) and wall time after a device synchronise; with
+    ``cache_decodes`` = n, also the cache stacks as the step left them (to
+    the host), for every step until n decode steps have been recorded."""
 
-    def __init__(self, step, keep_logits):
+    def __init__(self, step, keep_logits, cache_decodes=0):
         self.step = step
         self.keep_logits = keep_logits
+        self.cache_decodes = cache_decodes
+        self.decodes = 0
         self.records = []
 
     def __call__(self, params, state, batch, cfg):
@@ -457,20 +476,24 @@ class StepRecorder:
         rec["s"] = time.monotonic() - t0
         if self.keep_logits:
             rec["logits"] = logits.float().cpu()
+        if self.decodes < self.cache_decodes:
+            rec["cache"] = {k: v.cpu() for k, v in state.items()
+                            if k != "pos"}
+        self.decodes += rec["T"] == 1
         self.records.append(rec)
         return logits, state
 
 
-def serve(eng, mods, requests, keep_logits, warm=True):
+def serve(eng, mods, requests, keep_logits, warm=True, cache_decodes=0):
     """Serve ``requests`` ((prompt, max_new) pairs) after an optional warm-up,
     with every kernel's launch count set to 0 just before the run and read
-    just after it."""
+    just after it (``StepRecorder`` records the steps)."""
     from repro_torch.serve.engine import Request
     if warm:
         eng.submit(Request(prompt=requests[0][0], max_new_tokens=2, rid=-1))
         eng.run()
         torch.cuda.synchronize()
-    rec = StepRecorder(eng.fam.decode_step, keep_logits)
+    rec = StepRecorder(eng.fam.decode_step, keep_logits, cache_decodes)
     eng.fam = dataclasses.replace(eng.fam, decode_step=rec)
     for rid, (p, n) in enumerate(requests):
         eng.submit(Request(prompt=p, max_new_tokens=n, rid=rid))
@@ -573,28 +596,59 @@ def hold_logits(got, want, what):
     return err / scale, margin
 
 
-def compare_with_cpu(eng, records):
-    """Replay the card's recorded batches through the plain path on the
-    CPU (the same packed weights) and hold the card's logits to it."""
+def replay_on_cpu(eng, records, card_cache=False):
+    """Replay the card's recorded batches through the plain path on the CPU
+    (the same packed weights); yield (card logits, CPU logits, what) for
+    every valid position.
+
+    By default the CPU keeps its own cache, written by its own steps.
+    ``card_cache=True`` runs each step instead on the cache the card left
+    after that step (``StepRecorder``'s ``cache``), with the CPU's cache
+    writes skipped and a reset slot's position set to 0 as the step's
+    prologue would: both sides then read the same quantised cache, so the
+    compare holds the computation, not the rounding of near-midpoint
+    values to a different code."""
+    from repro_torch.models import layers
     from repro_torch.serve.engine import alloc_decode_state, params_to
     cpu = torch.device("cpu")
     params = params_to(eng.params, cpu)
     state = alloc_decode_state(eng.fam, eng.cfg, eng.B, eng.kv_len,
                                slack=eng.prefill_chunk, device=cpu)
+    write_kv = layers.write_kv
+    if card_cache:
+        layers.write_kv = lambda cache, *args, **kw: cache
+    try:
+        with torch.inference_mode():
+            for rec in records:
+                batch, pos = rec["batch"], rec["pos"].to(torch.int32)
+                if card_cache:
+                    batch = {k: v for k, v in batch.items() if k != "reset"}
+                    if "reset" in rec["batch"]:
+                        pos = torch.where(rec["batch"]["reset"].bool(),
+                                          torch.zeros_like(pos), pos)
+                    state = dict(rec["cache"])
+                state["pos"] = pos
+                logits, state = eng.fam.decode_step(params, state, batch,
+                                                    eng.cfg)
+                tv = rec["batch"]["t_valid"].numpy()
+                for i in range(len(tv)):
+                    for t in range(int(tv[i])):
+                        yield (rec["logits"][i, t].numpy(),
+                               logits[i, t].numpy(),
+                               f"card vs CPU plain path, step pos "
+                               f"{int(rec['pos'][i])}")
+    finally:
+        layers.write_kv = write_kv
+
+
+def compare_with_cpu(eng, records, card_cache=False):
+    """Hold the card's logits to the plain path's replay (``replay_on_cpu``)
+    under ``hold_logits``."""
     worst, n_margin = 0.0, 0
-    with torch.inference_mode():
-        for rec in records:
-            state["pos"] = rec["pos"].to(torch.int32)
-            logits, state = eng.fam.decode_step(params, state, rec["batch"],
-                                                eng.cfg)
-            tv = rec["batch"]["t_valid"].numpy()
-            for i in range(len(tv)):
-                for t in range(int(tv[i])):
-                    rel, margin = hold_logits(
-                        rec["logits"][i, t].numpy(), logits[i, t].numpy(),
-                        f"card vs CPU plain path, step pos {rec['pos'][i]}")
-                    worst = max(worst, rel)
-                    n_margin += margin
+    for got, want, what in replay_on_cpu(eng, records, card_cache):
+        rel, margin = hold_logits(got, want, what)
+        worst = max(worst, rel)
+        n_margin += margin
     check(n_margin > 0, "no high-margin token to compare")
     return worst, n_margin
 
@@ -701,7 +755,8 @@ def gemma3_phase(dev, mods):
     """gemma3-1b full, kv_len 1024: q8 (4 requests compared with the CPU
     plain path, profiled, then a 600-token prompt that wraps the 520-slot
     rings, held to the same request on full-length caches), then the same 4
-    requests with a q4 cache on the same packed weights."""
+    requests with a q4 cache on the same packed weights (prefill and the
+    first three decode steps compared with the CPU plain path)."""
     from repro_torch.serve.engine import ServeEngine
     arch = "gemma3-1b"
     eng, setup_s = build_engine(arch, dev, kv_len=1024, kv_format="q8")
@@ -725,8 +780,8 @@ def gemma3_phase(dev, mods):
               [g["length"] for g in cb["cache_groups"]] == [520, 1032],
               f"{arch} {fmt}: cache_bytes {cb['kv']} (groups "
               f"{cb['cache_groups']}) != {KV_BYTES[fmt]}")
-        done, stats, records = serve(eng, mods, reqs,
-                                     keep_logits=fmt == "q8")
+        done, stats, records = serve(eng, mods, reqs, keep_logits=True,
+                                     cache_decodes=3 if fmt == "q4" else 0)
         check_run(arch, done, stats, reqs)
         out = dict(phase="serve", arch=arch, kv_format=fmt, **setup,
                    weight_bytes=wb, kv_bytes=cb["kv"],
@@ -756,8 +811,26 @@ def gemma3_phase(dev, mods):
             runs += [long_stats, full_stats]
             t0 = time.monotonic()
             worst, n = compare_with_cpu(eng, records)
-            out.update(cpu_max_rel_logit_err=worst, cpu_margin_tokens=n,
-                       cpu_compare_s=time.monotonic() - t0)
+        else:
+            # the prefill step and the first three decode steps (the steps
+            # whose cache was recorded), to keep the CPU replay short. A q4
+            # code flips where a value lies near a midpoint, so the CPU's
+            # own cache drifts from the card's with the bf16 rounding of
+            # the projections: the held replay reads the card's cache, and
+            # the drift of a replay on the CPU's own cache is reported
+            records = records[:sum("cache" in r for r in records)]
+            check(len(records) >= 4 and records[0]["T"] > 1
+                  and [r["T"] for r in records[-3:]] == [1, 1, 1],
+                  "the q4 compare needs the prefill and 3 decode steps")
+            out["cpu_own_cache_max_rel_logit_err"] = max(
+                float(np.abs(got - want).max() / np.abs(want).max())
+                for got, want, _ in replay_on_cpu(eng, records))
+            t0 = time.monotonic()
+            worst, n = compare_with_cpu(eng, records, card_cache=True)
+            out["cpu_compared_steps"] = len(records)
+        out.update(cpu_max_rel_logit_err=worst, cpu_margin_tokens=n,
+                   cpu_compare_s=time.monotonic() - t0)
+        del records
         out["tokens"] = {g.rid: g.tokens for g in done}
         emit(**out)
         runs.append(stats)
@@ -792,17 +865,44 @@ def ptxas_summary(build_dir):
 
 
 def sass_check(build_dir):
-    """Tensor-core instructions in the built dequant_matmul library
-    (``cuobjdump -sass``, CUDA toolkit): HMMA must be there."""
+    """Tensor-core instructions in the built dequant_matmul and
+    dequant_matmul_t libraries (``cuobjdump -sass``, CUDA toolkit): HMMA
+    must be in each."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    lib = build_dir / "libdequant_matmul.so"
-    r = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                       text=True, timeout=300)
-    check(r.returncode == 0, f"cuobjdump -sass {lib} failed: {r.stderr}")
-    hmma = [ln for ln in r.stdout.splitlines() if "HMMA" in ln]
-    emit(phase="sass", library="dequant_matmul", hmma_instructions=len(hmma),
-         example=hmma[0].strip() if hmma else None)
-    check(hmma, "the dequant_matmul library has no HMMA instruction")
+    for name in ("dequant_matmul", "dequant_matmul_t"):
+        lib = build_dir / f"lib{name}.so"
+        r = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                           text=True, timeout=300)
+        check(r.returncode == 0, f"cuobjdump -sass {lib} failed: {r.stderr}")
+        hmma = [ln for ln in r.stdout.splitlines() if "HMMA" in ln]
+        emit(phase="sass", library=name, hmma_instructions=len(hmma),
+             example=hmma[0].strip() if hmma else None)
+        check(hmma, f"the {name} library has no HMMA instruction")
+
+
+def ptxas_tc_instances(build_dir):
+    """Registers, spill stores and stack of each instance of the
+    dequant_matmul_t tensor-core kernel (tc::kernel<bits, n8-tiles, ring,
+    block % 16 == 0>), from nvcc's -Xptxas -v report."""
+    report = (build_dir / "ptxas_dequant_matmul_t.txt").read_text()
+    parts = re.split(r"Compiling entry function '([^']+)'", report)
+    out = {}
+    for name, body in zip(parts[1::2], parts[2::2]):
+        m = re.search(r"tc6kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E", name)
+        if not m:
+            continue
+
+        def num(pattern):
+            f = re.search(pattern, body)
+            return int(f.group(1)) if f else None
+        bits, nt, ring, blk16 = m.groups()
+        key = f"bits{bits}_nt{nt}_ring{ring}" + ("" if blk16 == "1" else
+                                                 "_block_not_16x")
+        out[key] = dict(registers=num(r"Used (\d+) registers"),
+                        spill_store_bytes=num(r"(\d+) bytes spill stores"),
+                        stack_frame_bytes=num(r"(\d+) bytes stack frame"))
+    check(out, "no tc::kernel instance in the dequant_matmul_t ptxas report")
+    return out
 
 
 def per_step(rows, pick, launches):
@@ -889,6 +989,8 @@ def main() -> int:
          ptxas=ptxas_summary(build.build_dir()),
          torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0))
+    emit(phase="ptxas", library="dequant_matmul_t",
+         tc_instances=ptxas_tc_instances(build.build_dir()))
     sass_check(build.build_dir())
 
     rows = kernel_phase(mods, dev)

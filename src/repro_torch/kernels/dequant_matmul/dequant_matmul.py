@@ -133,7 +133,11 @@ _tables: dict = {}
 
 def _table(codebook: torch.Tensor, bits: int) -> torch.Tensor:
     """``dequant_table`` of this codebook tensor, built at its first use and
-    rebuilt if the tensor is written in place."""
+    rebuilt if the tensor is written in place. An inference tensor (made
+    under ``torch.inference_mode``) has no version counter to show such a
+    write, so its table is built anew at every call and never cached."""
+    if codebook.is_inference():
+        return dequant_table(codebook, bits)
     key = id(codebook)
     hit = _tables.get(key)
     if hit is not None and hit[0]() is codebook and \

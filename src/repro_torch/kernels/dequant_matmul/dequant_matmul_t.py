@@ -4,8 +4,13 @@
 ``x (M, D) @ dequant(codes, scales).T -> (M, V)`` on the card (the tied
 unembed): checks every operand, allocates the output with ``torch.empty``,
 launches on the current stream and raises on a non-zero ``cudaError_t``. It
-never falls back to the plain version. ``launches`` counts the launches it
+never falls back to the plain version. ``launches`` counts the launches
 made.
+
+bf16 x runs the tensor-core kernel: one launch, one warp per 16 byte rows
+walking all of D (no K split, so two calls are bitwise equal), with the
+byte -> bf16x2 table of ``dequant_matmul`` (``_table``). f32 x runs the
+CUDA-core kernel.
 """
 from __future__ import annotations
 
@@ -16,12 +21,22 @@ import torch
 
 from repro_torch.core.nibble import nibble_k_tile
 from repro_torch.kernels import build
+from repro_torch.kernels.dequant_matmul.dequant_matmul import _table
 
-# Launches made by dequant_matmul_t_cuda since the count was last set to 0.
+# Launches made by this module's kernels since the count was last set to 0.
 launches = 0
 
+# f32 kernel (csrc dequant_matmul_t_kernel)
 MAX_M_TILE = 32                 # csrc: templates for 1, 2, 4, ..., 32 rows
 SMEM_BUDGET = 200 * 1024        # bytes of x a block may stage (of 227 KB)
+# bf16 tensor-core kernel (csrc tc::kernel)
+TC_TABLE_BYTES = 256 * 32 * 4   # the byte table, one copy per bank
+TC_SMEM_MAX = 227 * 1024        # dynamic shared memory a block may take
+TC_BLOCKS_PER_SM = 2            # __launch_bounds__(256, 2)
+TC_WARP_ROWS = 16               # byte rows a warp tile
+# chunks in the register ring: 2 measured fastest on the H100 at every
+# served shape; csrc also builds 3 and 4 where block % 16 == 0
+TC_RING = 2
 
 
 def m_tile(M: int, D: int) -> int:
@@ -41,6 +56,40 @@ def n_blocks(byte_rows: int, smem_bytes: int, n_sm: int) -> int:
     than there are rows for."""
     per_sm = max(1, min(4, SMEM_BUDGET // smem_bytes))
     return max(1, min(-(-byte_rows // 8), per_sm * n_sm))
+
+
+def tc_smem(nt: int, D: int) -> int:
+    """Shared bytes of a tensor-core block: the table and 8*nt rows of x
+    (row stride D rounded up to 64, plus 4, in bf16)."""
+    return TC_TABLE_BYTES + 2 * 8 * nt * (-(-D // 64) * 64 + 4)
+
+
+def tc_n_tiles(M: int, D: int) -> int:
+    """n8-tiles of tokens a tensor-core block takes: ceil(M / 8) rounded up
+    to 1, 2 or 4, halved while its x does not fit in shared memory."""
+    nt = 1 if M <= 8 else 2 if M <= 16 else 4
+    while nt > 1 and tc_smem(nt, D) > TC_SMEM_MAX:
+        nt //= 2
+    if tc_smem(nt, D) > TC_SMEM_MAX:
+        raise ValueError(f"dequant_matmul_t: D={D} does not fit the "
+                         "tensor-core kernel's shared memory")
+    return nt
+
+
+def code_vec(ptr: int, D: int) -> int:
+    """Bytes of one code load (16, 8 or 4): the widest that divides both
+    the codes' address and D (every byte row starts at a multiple of D)."""
+    for vec in (16, 8):
+        if ptr % vec == 0 and D % vec == 0:
+            return vec
+    return 4
+
+
+def tc_blocks(byte_rows: int, n_sm: int) -> int:
+    """Blocks of 8 warps walking the 16-row warp tiles grid-stride: one
+    wave of two per SM, never more than there are tiles for."""
+    return max(1, min(-(-byte_rows // (8 * TC_WARP_ROWS)),
+                      TC_BLOCKS_PER_SM * n_sm))
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,12 +139,70 @@ def _check(x, codes, scales, codebook, block, bits):
         raise ValueError(f"{name}: codes must be 4-byte aligned")
 
 
+def _ring(ring, block: int) -> int:
+    """The ring depth to launch: ``TC_RING`` unless one of the built depths
+    (2..4 where block % 16 == 0) is asked for."""
+    if ring is None:
+        return TC_RING
+    if ring not in ((2, 3, 4) if block % 16 == 0 else (TC_RING,)):
+        raise ValueError(f"dequant_matmul_t: no ring depth {ring} is built "
+                         f"for block {block}")
+    return ring
+
+
+def launch_tc(x, codes, scales, codebook, block: int, bits: int,
+              ring=None) -> torch.Tensor:
+    """One launch of the tensor-core kernel (bf16 x) with ``ring`` chunks
+    in the register ring (None: ``TC_RING``); raises on a CUDA error."""
+    global launches
+    lib = build.load_library("dequant_matmul_t")
+    M, D = x.shape
+    V = codes.shape[0] * (2 if bits == 4 else 1)
+    nt = tc_n_tiles(M, D)
+    ring = _ring(ring, block)
+    table = _table(codebook, bits)
+    out = torch.empty(M, V, dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.dequant_matmul_t_launch(
+        x.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+        codebook.data_ptr(), table.data_ptr(), out.data_ptr(), 1, M, D, V,
+        block, bits, nibble_k_tile(V) if bits == 4 else V, codebook.numel(),
+        8 * nt, tc_blocks(codes.shape[0], _sm_count(x.device.index)),
+        code_vec(codes.data_ptr(), D), ring, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"dequant_matmul_t: CUDA launch failed with "
+                           f"cudaError_t {err}")
+    launches += 1
+    return out
+
+
+def tc_info(bits: int, M: int, D: int, block: int, ring=None) -> dict:
+    """Registers per thread, dynamic shared bytes per block, blocks
+    resident per SM, spill bytes and ring depth of the tensor-core instance
+    that serves ``M`` tokens at this D and block (on the card)."""
+    lib = build.load_library("dequant_matmul_t")
+    fn = lib.dequant_matmul_t_tc_info
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    nt = tc_n_tiles(M, D)
+    ring = _ring(ring, block)
+    out = (ctypes.c_int * 4)()
+    err = fn(bits, nt, ring, block, D, out)
+    if err != 0:
+        raise RuntimeError(f"dequant_matmul_t: occupancy query failed with "
+                           f"cudaError_t {err}")
+    return dict(registers=out[0], smem_bytes=out[1], blocks_per_sm=out[2],
+                spill_bytes=out[3], ring_depth=ring)
+
+
 def dequant_matmul_t_cuda(x, codes, scales, codebook, block: int = 128,
                           bits: int = 8) -> torch.Tensor:
     """Launch the CUDA kernel; see the module docstring."""
     global launches
     lib = build.load_library("dequant_matmul_t")
     _check(x, codes, scales, codebook, block, bits)
+    if x.dtype == torch.bfloat16:
+        return launch_tc(x, codes, scales, codebook, block, bits)
     M, D = x.shape
     V = codes.shape[0] * (2 if bits == 4 else 1)
     tile = nibble_k_tile(V) if bits == 4 else V
@@ -106,9 +213,8 @@ def dequant_matmul_t_cuda(x, codes, scales, codebook, block: int = 128,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.dequant_matmul_t_launch(
         x.data_ptr(), codes.data_ptr(), scales.data_ptr(),
-        codebook.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16),
-        M, D, V, block, bits, tile, codebook.numel(), mt, blocks,
-        ctypes.c_void_p(stream))
+        codebook.data_ptr(), None, out.data_ptr(), 0, M, D, V, block, bits,
+        tile, codebook.numel(), mt, blocks, 0, 0, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"dequant_matmul_t: CUDA launch failed with "
                            f"cudaError_t {err}")

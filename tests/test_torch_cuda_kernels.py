@@ -152,6 +152,25 @@ def mt_args(M, V, D, bits, block, seed, dtype, device):
             scales.to(torch.bfloat16).to(device), cb.to(device))
 
 
+def check_mt(args, block, bits, dtype):
+    """One counted launch, held to the plain version: f32 x at 1e-5
+    relative (summation order), bf16 x at the tensor-core tolerance (cb and
+    cb*scale rounded to bf16, the output rounded to bf16); a second call is
+    bitwise equal (no K split)."""
+    before = dqmt.launches
+    y = ops.dequant_matmul_t(*args, block=block, bits=bits)
+    torch.cuda.synchronize()
+    assert dqmt.launches == before + 1
+    want = dequant_matmul_t_ref(*args, block, bits).float().cpu().numpy()
+    assert y.dtype == dtype and y.shape == want.shape
+    scale = float(np.abs(want).max())
+    tol = (dict(rtol=1e-5, atol=1e-5 * scale) if dtype == torch.float32
+           else dict(rtol=1.6e-2, atol=1e-2 * scale))
+    np.testing.assert_allclose(y.float().cpu().numpy(), want, **tol)
+    assert torch.equal(y, ops.dequant_matmul_t(*args, block=block,
+                                               bits=bits))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("M", [1, 4, 5, 32, 40])
 @pytest.mark.parametrize("bits,block", [(4, 32), (4, 64), (4, 128),
@@ -160,15 +179,71 @@ def mt_args(M, V, D, bits, block, seed, dtype, device):
 def test_dequant_matmul_t_kernel(cuda_device, M, bits, block, dtype):
     args = mt_args(M, 1024, 1152, bits, block, M + bits + block, dtype,
                    cuda_device)
-    before = dqmt.launches
-    y = ops.dequant_matmul_t(*args, block=block, bits=bits)
-    torch.cuda.synchronize()
-    assert dqmt.launches == before + 1
-    want = dequant_matmul_t_ref(*args, block, bits).float().cpu().numpy()
-    scale = float(np.abs(want).max())
-    tol = (dict(rtol=1e-5, atol=1e-5 * scale) if dtype == torch.float32
-           else dict(rtol=1.6e-2, atol=1e-2 * scale))
-    np.testing.assert_allclose(y.float().cpu().numpy(), want, **tol)
+    check_mt(args, block, bits, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,V,D,bits,block", [
+    (4, 1040, 1152, 4, 64), (32, 1040, 1152, 4, 128),   # one nibble tile
+    (5, 1040, 1152, 8, 32),                              # ragged warp tile
+    (3, 1040, 96, 4, 32), (17, 1024, 96, 8, 32),         # D % 64 != 0
+    (4, 1040, 160, 4, 20), (9, 512, 160, 8, 20),         # block % 16 != 0
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dequant_matmul_t_kernel_edges(cuda_device, M, V, D, bits, block,
+                                       dtype):
+    args = mt_args(M, V, D, bits, block, M + V + D, dtype, cuda_device)
+    check_mt(args, block, bits, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [4, 8])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_dequant_matmul_t_codes_aligned_to_4_bytes(cuda_device, offset,
+                                                   bits):
+    """Codes 4- or 8-byte but not 16-byte aligned (a view into a larger
+    buffer) take narrower code loads, with the aligned codes' result."""
+    x, codes, scales, cb = mt_args(4, 1040, 1152, bits, 64, offset + bits,
+                                   torch.bfloat16, cuda_device)
+    buf = torch.empty(codes.numel() + 32, dtype=torch.uint8,
+                      device=cuda_device)
+    base = -buf.data_ptr() % 16 + offset
+    shifted = buf[base:base + codes.numel()].view(codes.shape)
+    shifted.copy_(codes)
+    assert shifted.data_ptr() % 16 == offset
+    assert dqmt.code_vec(shifted.data_ptr(), 1152) == offset
+    assert dqmt.code_vec(codes.data_ptr(), 1152) == 16
+    check_mt((x, shifted, scales, cb), 64, bits, torch.bfloat16)
+    y = ops.dequant_matmul_t(x, shifted, scales, cb, block=64, bits=bits)
+    assert torch.equal(y, ops.dequant_matmul_t(x, codes, scales, cb,
+                                               block=64, bits=bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [4, 32])
+@pytest.mark.parametrize("ring", [2, 3, 4])
+def test_dequant_matmul_t_ring_depths_agree(cuda_device, M, ring):
+    """Every built depth of the register ring gives the default's bits."""
+    args = mt_args(M, 2048, 1152, 4, 64, M + ring, torch.bfloat16,
+                   cuda_device)
+    want = ops.dequant_matmul_t(*args, block=64, bits=4)
+    assert torch.equal(dqmt.launch_tc(*args, 64, 4, ring=ring), want)
+    info = dqmt.tc_info(4, M, 1152, 64, ring)
+    assert info["ring_depth"] == ring and info["registers"] <= 128
+    assert info["blocks_per_sm"] >= 2
+
+
+@pytest.mark.cuda
+def test_dequant_matmul_t_inference_mode_codebook(cuda_device):
+    """A codebook made under torch.inference_mode (no version counter)
+    gives the plain version's result, also after an in-place write."""
+    x, codes, scales, cb = mt_args(4, 1024, 1152, 4, 64, 3, torch.bfloat16,
+                                   cuda_device)
+    with torch.inference_mode():
+        cbi = cb.clone()
+        check_mt((x, codes, scales, cbi), 64, 4, torch.bfloat16)
+        cbi.mul_(2.0)
+        check_mt((x, codes, scales, cbi), 64, 4, torch.bfloat16)
 
 
 @pytest.mark.cuda

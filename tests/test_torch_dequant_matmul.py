@@ -9,11 +9,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.nibble import pack_nibbles, unpack_nibbles
+from repro_torch.core.nibble import (nibble_k_tile, pack_nibbles,
+                                     unpack_nibbles)
 from repro_torch.kernels import ops
 from repro_torch.kernels import build
 from repro_torch.kernels.dequant_matmul import dequant_matmul as dqm
-from repro_torch.kernels.dequant_matmul.ref import dequant_matmul_ref
+from repro_torch.kernels.dequant_matmul import dequant_matmul_t as dqmt
+from repro_torch.kernels.dequant_matmul.ref import (dequant_matmul_ref,
+                                                    dequant_matmul_t_ref)
 
 
 def make_case(M, K, N, bits, block, seed, lead=None):
@@ -237,6 +240,212 @@ class TestDequantTable:
         assert t2 is not t1 and torch.equal(t2, dqm.dequant_table(cb, 4))
         assert not torch.equal(t1, t2)
         assert dqm._table(cb, 8) is not t2   # bits are part of the key
+
+    def test_inference_tensor_codebook_gets_its_table(self):
+        """A codebook made under ``torch.inference_mode`` has no version
+        counter: its table is right, and right again after an in-place
+        write, inside and outside inference mode."""
+        with torch.inference_mode():
+            cb = torch.linspace(-1, 1, 16)
+            assert cb.is_inference()
+            t1 = dqm._table(cb, 4)
+            assert torch.equal(t1, dqm.dequant_table(cb, 4))
+            cb[3] = 5.0
+            t2 = dqm._table(cb, 4)
+        assert torch.equal(t2, dqm.dequant_table(cb, 4))
+        assert not torch.equal(t1, t2)
+        assert torch.equal(dqm._table(cb, 4), t2)
+        assert torch.equal(dqm._table(cb, 8), dqm.dequant_table(cb, 8))
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core dequant_matmul_t's lane mapping, emulated on the CPU
+
+
+def bf16_bits(f32):
+    """f32 array -> bf16 bit patterns (uint32), rounded to nearest even."""
+    u = np.ascontiguousarray(f32, np.float32).view(np.uint32)
+    return (u + 0x7FFF + ((u >> 16) & 1)) >> 16
+
+
+def bf16_value(bits):
+    return (np.asarray(bits, np.uint32) << 16).view(np.float32)
+
+
+def prmt(x, y, sel):
+    """CUDA __byte_perm: byte i of the result is byte (sel >> 4i) & 7 of
+    the 8 bytes {y, x} (x the low word)."""
+    both = x.astype(np.uint64) | (y.astype(np.uint64) << 32)
+    out = np.zeros_like(x, dtype=np.uint32)
+    for i in range(4):
+        b = (both >> np.uint64(8 * ((sel >> (4 * i)) & 7))) & np.uint64(0xFF)
+        out |= b.astype(np.uint32) << np.uint32(8 * i)
+    return out
+
+
+def mul_bf16x2(a, s):
+    """fma.rn.bf16x2 a * s + -0: each half's exact product rounded to bf16."""
+    lo = bf16_bits(bf16_value(a & 0xFFFF) * bf16_value(s & 0xFFFF))
+    hi = bf16_bits(bf16_value(a >> 16) * bf16_value(s >> 16))
+    return (lo | (hi << 16)).astype(np.uint32)
+
+
+def emulate_tc(x, codes, scales, table, M, V, D, block, bits, vec=16):
+    """The csrc tc::kernel on the CPU, lane by lane: x (M, D) bf16 bits,
+    codes the packed bytes, scales (V, D/block) bf16 bits, table the 256
+    int32 words of ``dequant_table``; returns y (M, V) in f32 (the f32
+    accumulator before the output rounding). Every warp tile of 16 byte
+    rows at once, lanes (g, t) along two axes."""
+    MT = 8 * dqmt.tc_n_tiles(M, D)
+    NT = MT // 8
+    byte_rows = V // 2 if bits == 4 else V
+    tile = nibble_k_tile(V) if bits == 4 else V
+    half = tile // 2
+    n_sb = D // block
+    n_tiles = -(-byte_rows // 16)
+    n_chunks = -(-D // 64)
+    tbl = table.numpy().view(np.uint32)
+    g = np.arange(8)[None, :, None]
+    t = np.arange(4)[None, None, :]
+    wt = np.arange(n_tiles)[:, None, None]
+    # the lane's byte rows j0 + g (i = 0) and j0 + 8 + g (i = 1)
+    rows, ok, v = [], [], []
+    for i in range(2):
+        j = np.broadcast_to(wt * 16 + 8 * i + g, (n_tiles, 8, 4))
+        okj = j < byte_rows
+        r = np.where(okj, j, 0)
+        rows.append(r)
+        ok.append(okj)
+        if bits == 4:
+            lo = (r // half) * tile + r % half
+            v += [lo, lo + half]
+        else:
+            v.append(r)
+    # x staged with zeros past D; token rows past M are zeros
+    y = np.zeros((M, V), np.float32)
+    for m0 in range(0, M, MT):
+        xs = np.zeros((MT, n_chunks * 64), np.uint32)
+        mm = min(MT, M - m0)
+        xs[:mm, :D] = x[m0:m0 + mm]
+        n_mma = 2 if bits == 4 else 1
+        acc = np.zeros((n_mma, n_tiles, 16, MT), np.float64)
+        for c in range(n_chunks):
+            d0 = c * 64 + 16 * t                     # (1, 1, 4)
+            code = []
+            for i in range(2):                       # 16 bytes a row
+                byt = np.zeros((n_tiles, 8, 4, 16), np.uint32)
+                for p in range(16 // vec):
+                    dp = d0 + p * vec
+                    okp = np.broadcast_to(dp < D, (n_tiles, 8, 4))
+                    for q in range(vec):
+                        col = np.minimum(dp + q, D - 1)
+                        byt[..., p * vec + q] = np.where(
+                            okp, codes[rows[i], np.broadcast_to(
+                                col, rows[i].shape)], 0)
+                code.append(byt)
+            for s in range(4):
+                sb = np.minimum((d0 + 4 * s) // block, n_sb - 1)
+                sc = [np.broadcast_to(scales[vk, np.broadcast_to(sb, vk.shape)]
+                                      * 0x10001, vk.shape).astype(np.uint32)
+                      for vk in v]
+                e = [[tbl[code[i][..., 4 * s + q]] for q in range(4)]
+                     for i in range(2)]
+                if bits == 4:
+                    frags = [(mul_bf16x2(prmt(e[i][0], e[i][1], 0x5410),
+                                         sc[2 * i]),
+                              mul_bf16x2(prmt(e[i][0], e[i][1], 0x7632),
+                                         sc[2 * i + 1]),
+                              mul_bf16x2(prmt(e[i][2], e[i][3], 0x5410),
+                                         sc[2 * i]),
+                              mul_bf16x2(prmt(e[i][2], e[i][3], 0x7632),
+                                         sc[2 * i + 1])) for i in range(2)]
+                else:
+                    frags = [(mul_bf16x2(prmt(e[0][0], e[0][1], 0x5410), sc[0]),
+                              mul_bf16x2(prmt(e[1][0], e[1][1], 0x5410), sc[1]),
+                              mul_bf16x2(prmt(e[0][2], e[0][3], 0x5410), sc[0]),
+                              mul_bf16x2(prmt(e[1][2], e[1][3], 0x5410),
+                                         sc[1]))]
+                # B (16 k x 8 tokens) of each n-tile from the lane's 8-byte
+                # load of x[token nt*8 + g][64c + 16t + 4s ...]
+                B = np.zeros((16, MT), np.float64)
+                for nt in range(NT):
+                    for gg in range(8):
+                        for tt in range(4):
+                            base = c * 64 + 16 * tt + 4 * s
+                            four = bf16_value(xs[nt * 8 + gg, base:base + 4])
+                            m = nt * 8 + gg
+                            B[2 * tt:2 * tt + 2, m] = four[:2]
+                            B[2 * tt + 8:2 * tt + 10, m] = four[2:]
+                for i, (a0, a1, a2, a3) in enumerate(frags):
+                    A = np.zeros((n_tiles, 16, 16), np.float64)
+                    for reg, (r0, k0) in zip((a0, a1, a2, a3),
+                                             ((0, 0), (8, 0), (0, 8), (8, 8))):
+                        for h in range(2):
+                            val = bf16_value((reg >> (16 * h)) & 0xFFFF)
+                            for tt in range(4):
+                                A[:, r0:r0 + 8, k0 + 2 * tt + h] = \
+                                    val[:, :, tt]
+                    acc[i] += A @ B
+        # C row g -> output rows of (tile i, half): bits=4 (v_lo, v_hi) of
+        # byte row i; bits=8 byte rows 0 and 1
+        for i in range(n_mma):
+            for h in range(2):
+                k = 2 * i + h if bits == 4 else h
+                okk = ok[i if bits == 4 else h][:, :, 0]
+                vk = v[k][:, :, 0]
+                for m in range(mm):
+                    y[m0 + m, vk[okk]] = acc[i][:, 8 * h:8 * h + 8, m][okk]
+    return y
+
+
+def exact_case(M, V, D, bits, block, seed):
+    """Operands whose products cb * scale are exact in bf16 (4-bit mantissas
+    each), so the kernel's two roundings change nothing and only the
+    summation order differs from the f32 reference."""
+    rng = np.random.default_rng(seed)
+    n_codes = 16 if bits == 4 else 256
+
+    def four_bit(shape, lo, hi):
+        return (rng.integers(1, 16, shape) * 2.0 ** rng.integers(lo, hi, shape)
+                ).astype(np.float32)
+    cb = np.sort(four_bit(n_codes, -5, 0) * rng.choice([-1, 1], n_codes))
+    scales = four_bit((V, D // block), -7, -3)
+    codes = rng.integers(0, n_codes, (V, D)).astype(np.uint8)
+    x = rng.standard_normal((M, D)).astype(np.float32)
+    x = bf16_value(bf16_bits(x))
+    return x, codes, scales, cb.astype(np.float32)
+
+
+@pytest.mark.parametrize("M,V,D,bits,block,vec", [
+    (5, 1040, 1152, 4, 32, 16), (5, 1040, 1152, 4, 64, 16),
+    (20, 1040, 1152, 4, 128, 16), (5, 1040, 1152, 8, 32, 16),
+    (5, 1040, 1152, 8, 64, 16), (20, 1040, 1152, 8, 128, 16),
+    (3, 1040, 96, 4, 32, 4), (40, 512, 96, 8, 32, 8),
+    (4, 1024, 1152, 4, 64, 8), (2, 1040, 160, 4, 20, 4),
+])
+def test_tc_lane_mapping_matches_reference(M, V, D, bits, block, vec):
+    """The fragment map of the tensor-core dequant_matmul_t (loads from (g,
+    t, s, c), table, prmt selectors, scale, B from naturally ordered x, C
+    rows back to v) against dequant_matmul_t_ref, 1e-5 relative in f32. V =
+    1040 has one nibble tile (nibble_k_tile falls back to V) and a ragged
+    last warp tile, V = 1024 four tiles of 256; D = 96 and 160 end in a ragged chunk; block 20 is not a
+    multiple of 16 (a scale per k16 step); M = 20 and 40 fill n8-tiles
+    partly and M = 40 takes two M tiles."""
+    x, codes, scales, cb = exact_case(M, V, D, bits, block, seed=M + V + D
+                                      + bits + block)
+    c = torch.from_numpy(codes)
+    if bits == 4:
+        c = pack_nibbles(c)
+    s16 = torch.from_numpy(scales).to(torch.bfloat16)
+    cbt = torch.from_numpy(cb)
+    y = emulate_tc(bf16_bits(x), c.numpy(),
+                   s16.view(torch.int16).numpy().view(np.uint16).astype(
+                       np.uint32),
+                   dqm.dequant_table(cbt, bits), M, V, D, block, bits, vec)
+    want = dequant_matmul_t_ref(torch.from_numpy(x), c, s16, cbt, block,
+                                bits).numpy()
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(y, want, rtol=1e-5, atol=1e-5 * scale)
 
 
 # ---------------------------------------------------------------------------
