@@ -19,9 +19,9 @@ Phases, each printed as JSON lines:
    case), each called twice with bitwise-equal results, with its tile
    width, K splits, registers and blocks per SM; ``dequant_matmul_t`` at
    gemma3-1b's tied unembed (262144 x 1152, M = 1, 4, 32, and 8-bit), each
-   called twice with bitwise-equal results, with its registers, blocks per
-   SM and its time at each depth of the register ring; ``block_quant`` at hd 256 and 64, rows 4, 32
-   and 256, q8 and q4 (bitwise); ``decode_attention_quant`` at gemma3-1b's
+   called twice with bitwise-equal results, with its registers, spills
+   and blocks per SM; ``block_quant`` at hd 256 and 64, rows 4, 32 and
+   256, q8 and q4 (bitwise); ``decode_attention_quant`` at gemma3-1b's
    shapes (ring S = 520 and linear S = 1032, T = 1 and 8, q8 and q4, a
    wrapped ring).
 3. serve paper-100m full: babsmax64:n4 packed, seeded weights, 4 slots x 4
@@ -34,7 +34,8 @@ Phases, each printed as JSON lines:
    with full-length caches (no ring); launch counts of all four kernels,
    resident weight and KV bytes, card-vs-CPU logits. Then the same 4
    requests with a q4 cache, whose prefill step and first three decode
-   steps are held to the CPU plain path on the same q4 cache.
+   steps are held to the CPU plain path on the same q4 cache: the logits,
+   and the codes and scales of each step's new k and v.
 6. the kernels summary line, then ``{"ok": true, "device": ...}``.
 
 Every count of kernel launches is set to 0 just before a serve run and read
@@ -214,9 +215,11 @@ def matmul_case(mods, dev, gen, cb, flush, K, N, M, bits, lead=None):
     return out
 
 
-def matmul_t_case(mods, dev, gen, cb, flush, V, D, M, bits):
+def matmul_t_case(mods, dev, gen, cb, flush, V, D, M, bits, tc_ptxas):
     """The tied unembed: x (M, D) @ dequant(table (V, D)).T, with the
-    library call ``torch.matmul`` against the pre-dequantised bf16 table."""
+    library call ``torch.matmul`` against the pre-dequantised bf16 table,
+    and the registers and spills of the tensor-core instance that ran
+    (``tc_ptxas``, from ``ptxas_tc_instances``)."""
     from repro_torch.core.nibble import pack_nibbles
     from repro_torch.kernels.dequant_matmul import ref
     block = 64
@@ -243,15 +246,11 @@ def matmul_t_case(mods, dev, gen, cb, flush, V, D, M, bits):
         torch.bfloat16)
     nbytes = V * D * bits // 8 + V * (D // block) * 2 + M * D * 2 + M * V * 2
     flops = 2 * M * V * D
-    # the one knob: chunks in the register ring (the wrapper's default is
-    # the kernel_ms row)
-    ring_ms = {r: time_ms(lambda r=r: mod.launch_tc(x, codes, scales, cb,
-                                                    block, bits, ring=r),
-                          flush) for r in (2, 3, 4)}
     out = dict(
         V=V, D=D, M=M, bits=bits, bytes=nbytes, flops=flops,
         bound_ms=bound_ms(nbytes, flops), bitwise_repeat=True,
-        **mod.tc_info(bits, M, D, block), ring_ms=ring_ms,
+        **tc_ptxas[f"bits{bits}_nt{mod.tc_n_tiles(M, D)}"],
+        blocks_per_sm=mod.tc_blocks_per_sm(bits, M, D, block),
         kernel_ms=time_ms(lambda: kern(x, codes, scales, cb, block, bits),
                           flush),
         plain_ms=time_ms(lambda: ref.dequant_matmul_t_ref(
@@ -374,7 +373,7 @@ def attention_case(mods, dev, gen, flush, T, S, ring, window, starts, fmt):
         max_abs_err=err, max_abs_y=scale)
 
 
-def kernel_phase(mods, dev):
+def kernel_phase(mods, dev, tc_ptxas):
     from repro_torch.core.registry import parse_format
     gen = torch.Generator(device=dev).manual_seed(0)
     cb4 = parse_format(SPEC).element.torch_codepoints(dev)
@@ -402,7 +401,8 @@ def kernel_phase(mods, dev):
     V, D = UNEMBED_T
     for M, bits in ((1, 4), (4, 4), (32, 4), (4, 8)):
         record("dequant_matmul_t", matmul_t_case(
-            mods, dev, gen, cb4 if bits == 4 else cb8, flush, V, D, M, bits),
+            mods, dev, gen, cb4 if bits == 4 else cb8, flush, V, D, M, bits,
+            tc_ptxas),
             model="gemma3-1b", weights="tied unembed")
     for fmt in ("q8", "q4"):
         for hd in (256, 64):
@@ -596,18 +596,71 @@ def hold_logits(got, want, what):
     return err / scale, margin
 
 
-def replay_on_cpu(eng, records, card_cache=False):
+def kv_witness(stats):
+    """A ``layers.write_kv`` for the card-cache replay: writes nothing, and
+    holds the codes and scales the plain path gives this step's new k or v
+    (the CPU's own wk/wv, k-norm, RoPE and quantisation) to those the card
+    wrote at the same cache rows. Adds to ``stats``: codes compared, codes
+    that differ, the largest difference in codepoints, and the largest
+    relative difference of a scale."""
+    from repro_torch.kernels.block_quant.ref import block_quant_ref
+    from repro_torch.models.layers import QuantisedKV, codebook_bits, kv_rows
+
+    def write(cache, new, rows, slots, codebook=None, dest=None):
+        check(isinstance(cache, QuantisedKV), "the card-cache replay "
+              "expects quantised caches only")
+        B, T, K, hd = new.shape
+        if dest is None:
+            dest = kv_rows(rows, slots, cache.codes.shape[1], K)
+        codes, scales = block_quant_ref(new.reshape(B * T * K, hd),
+                                        codebook, hd)
+        card = cache.codes.reshape(-1, cache.codes.shape[-1])[dest]
+        if codebook_bits(codebook) == 4:
+            card = torch.stack([card & 15, card >> 4], -1).reshape(
+                codes.shape)
+        step = (codes.int() - card.int()).abs()
+        card_s = cache.scales.reshape(-1, 1)[dest]
+        rel = (scales - card_s).abs() / torch.where(
+            card_s == 0, torch.ones_like(card_s), card_s)
+        stats["codes"] += step.numel()
+        stats["differ"] += int((step > 0).sum())
+        stats["max_codepoints"] = max(stats["max_codepoints"],
+                                      int(step.max()))
+        stats["max_scale_rel"] = max(stats["max_scale_rel"],
+                                     float(rel.max()))
+        return cache
+    return write
+
+
+def hold_kv_witness(stats):
+    """The rule for ``kv_witness``'s counts: at most 10% of the codes
+    differ, each by one codepoint, and no scale by more than 5e-2 of
+    itself. bf16-level differences in k and v only move values that lie
+    near a midpoint to the next code, and a scale by an ulp or two; a fault
+    before the cache write (a wrong projection, norm or rotation) moves
+    codes by many codepoints."""
+    check(stats["codes"] > 0, "the K/V witness compared no code")
+    share = stats["differ"] / stats["codes"]
+    check(share <= 0.10 and stats["max_codepoints"] <= 1 and
+          stats["max_scale_rel"] <= 5e-2,
+          f"the CPU's own k/v codes disagree with the card's: {stats}")
+    return dict(stats, differ_share=share)
+
+
+def replay_on_cpu(eng, records, card_cache=False, kv_stats=None):
     """Replay the card's recorded batches through the plain path on the CPU
     (the same packed weights); yield (card logits, CPU logits, what) for
     every valid position.
 
     By default the CPU keeps its own cache, written by its own steps.
     ``card_cache=True`` runs each step instead on the cache the card left
-    after that step (``StepRecorder``'s ``cache``), with the CPU's cache
-    writes skipped and a reset slot's position set to 0 as the step's
-    prologue would: both sides then read the same quantised cache, so the
-    compare holds the computation, not the rounding of near-midpoint
-    values to a different code."""
+    after that step (``StepRecorder``'s ``cache``), with a reset slot's
+    position set to 0 as the step's prologue would, and the CPU's cache
+    writes replaced by ``kv_witness`` (its counts go to ``kv_stats``): both
+    sides then read the same quantised cache, so the logits compare holds
+    the computation, not the rounding of near-midpoint values to a
+    different code, and the witness holds the CPU's own new k and v to the
+    codes the card wrote."""
     from repro_torch.models import layers
     from repro_torch.serve.engine import alloc_decode_state, params_to
     cpu = torch.device("cpu")
@@ -616,7 +669,7 @@ def replay_on_cpu(eng, records, card_cache=False):
                                slack=eng.prefill_chunk, device=cpu)
     write_kv = layers.write_kv
     if card_cache:
-        layers.write_kv = lambda cache, *args, **kw: cache
+        layers.write_kv = kv_witness(kv_stats)
     try:
         with torch.inference_mode():
             for rec in records:
@@ -641,11 +694,12 @@ def replay_on_cpu(eng, records, card_cache=False):
         layers.write_kv = write_kv
 
 
-def compare_with_cpu(eng, records, card_cache=False):
+def compare_with_cpu(eng, records, card_cache=False, kv_stats=None):
     """Hold the card's logits to the plain path's replay (``replay_on_cpu``)
     under ``hold_logits``."""
     worst, n_margin = 0.0, 0
-    for got, want, what in replay_on_cpu(eng, records, card_cache):
+    for got, want, what in replay_on_cpu(eng, records, card_cache,
+                                         kv_stats):
         rel, margin = hold_logits(got, want, what)
         worst = max(worst, rel)
         n_margin += margin
@@ -816,7 +870,8 @@ def gemma3_phase(dev, mods):
             # whose cache was recorded), to keep the CPU replay short. A q4
             # code flips where a value lies near a midpoint, so the CPU's
             # own cache drifts from the card's with the bf16 rounding of
-            # the projections: the held replay reads the card's cache, and
+            # the projections: the held replay reads the card's cache, its
+            # K/V witness holds the CPU's own new codes to the card's, and
             # the drift of a replay on the CPU's own cache is reported
             records = records[:sum("cache" in r for r in records)]
             check(len(records) >= 4 and records[0]["T"] > 1
@@ -826,7 +881,11 @@ def gemma3_phase(dev, mods):
                 float(np.abs(got - want).max() / np.abs(want).max())
                 for got, want, _ in replay_on_cpu(eng, records))
             t0 = time.monotonic()
-            worst, n = compare_with_cpu(eng, records, card_cache=True)
+            kv = dict(codes=0, differ=0, max_codepoints=0,
+                      max_scale_rel=0.0)
+            worst, n = compare_with_cpu(eng, records, card_cache=True,
+                                        kv_stats=kv)
+            out["cpu_kv_witness"] = hold_kv_witness(kv)
             out["cpu_compared_steps"] = len(records)
         out.update(cpu_max_rel_logit_err=worst, cpu_margin_tokens=n,
                    cpu_compare_s=time.monotonic() - t0)
@@ -882,22 +941,22 @@ def sass_check(build_dir):
 
 def ptxas_tc_instances(build_dir):
     """Registers, spill stores and stack of each instance of the
-    dequant_matmul_t tensor-core kernel (tc::kernel<bits, n8-tiles, ring,
+    dequant_matmul_t tensor-core kernel (tc::kernel<bits, n8-tiles,
     block % 16 == 0>), from nvcc's -Xptxas -v report."""
     report = (build_dir / "ptxas_dequant_matmul_t.txt").read_text()
     parts = re.split(r"Compiling entry function '([^']+)'", report)
     out = {}
     for name, body in zip(parts[1::2], parts[2::2]):
-        m = re.search(r"tc6kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E", name)
+        m = re.search(r"tc6kernelILi(\d+)ELi(\d+)ELb([01])E", name)
         if not m:
             continue
 
         def num(pattern):
             f = re.search(pattern, body)
             return int(f.group(1)) if f else None
-        bits, nt, ring, blk16 = m.groups()
-        key = f"bits{bits}_nt{nt}_ring{ring}" + ("" if blk16 == "1" else
-                                                 "_block_not_16x")
+        bits, nt, blk16 = m.groups()
+        key = f"bits{bits}_nt{nt}" + ("" if blk16 == "1" else
+                                      "_block_not_16x")
         out[key] = dict(registers=num(r"Used (\d+) registers"),
                         spill_store_bytes=num(r"(\d+) bytes spill stores"),
                         stack_frame_bytes=num(r"(\d+) bytes stack frame"))
@@ -989,11 +1048,11 @@ def main() -> int:
          ptxas=ptxas_summary(build.build_dir()),
          torch=torch.__version__, cuda=torch.version.cuda,
          device=torch.cuda.get_device_name(0))
-    emit(phase="ptxas", library="dequant_matmul_t",
-         tc_instances=ptxas_tc_instances(build.build_dir()))
+    tc_ptxas = ptxas_tc_instances(build.build_dir())
+    emit(phase="ptxas", library="dequant_matmul_t", tc_instances=tc_ptxas)
     sass_check(build.build_dir())
 
-    rows = kernel_phase(mods, dev)
+    rows = kernel_phase(mods, dev, tc_ptxas)
     emit(phase="timing", kernel_phase_end_s=time.monotonic() - t_start)
     paper = serve_phase("paper-100m", dev, mods, compare_cpu=True)
     deepseek = serve_phase("deepseek-7b", dev, mods, compare_cpu=False)

@@ -35,7 +35,7 @@ SIGNATURES = {
     "dequant_matmul": ("dequant_matmul_launch",
                        [_P] * 8 + [_I] * 11 + [_P]),
     "dequant_matmul_t": ("dequant_matmul_t_launch",
-                         [_P] * 6 + [_I] * 12 + [_P]),
+                         [_P] * 6 + [_I] * 11 + [_P]),
     "block_quant": ("block_quant_launch", [_P] * 5 + [_I] * 7 + [_P]),
     "decode_attention": ("decode_attention_quant_launch",
                          [_P] * 10 + [_I] * 12 + [_F, _P]),

@@ -58,27 +58,27 @@
 //    that divides D and is a multiple of 4 works: where block % 16 == 0 a
 //    lane's 16 bytes share one scale a row, loaded with the chunk's codes;
 //    otherwise each k16 step loads its own.
-//  * Latency. A chunk's code and scale loads land in a ring of RING
-//    register sets, RING - 1 chunks ahead of the compute. Blocks of 8
-//    warps, two resident per SM (at most 128 registers a thread), walk the
-//    warp tiles grid-stride, so each SM keeps 16 warps x 32 lanes x 32
-//    bytes x (RING - 1) chunks of code loads in flight: 16 KB at RING = 2,
-//    48 KB at 4, against the ~25 KB that 3.35 TB/s times ~1 us of loaded
-//    latency asks of each of 132 SMs. On the H100 RING = 2 measured fastest
-//    at every served shape (3 and 4 are built for that measurement, where
-//    block % 16 == 0), so the loads issued while a chunk is waited on
-//    already cover the latency. Code loads are streaming (ld.global.cs:
-//    the table is read once); the table fill and the x staging happen once
-//    per block, after the first tile's loads are issued.
+//  * Latency. A chunk's code and scale loads land in a ring of kRing = 2
+//    register sets, one chunk ahead of the compute. Blocks of 8 warps, two
+//    resident per SM (at most 128 registers a thread), walk the warp tiles
+//    grid-stride, so each SM keeps 16 warps x 32 lanes x 32 bytes of code
+//    loads in flight: 16 KB, against the ~25 KB that 3.35 TB/s times ~1 us
+//    of loaded latency asks of each of 132 SMs. Rings of 3 and 4 sets (32
+//    and 48 KB) measured slower on the H100 at every served shape
+//    (PERF.md): the loads issued while a chunk is waited on already cover
+//    the latency. Code loads are streaming (ld.global.cs: the table is read
+//    once); the table fill and the x staging happen once per block, after
+//    the first tile's loads are issued.
 //  * Output: C fragments go to device memory in x's dtype, rounded to
 //    nearest from f32; each store instruction of a warp writes 16
 //    contiguous bytes in 4 token rows.
 //
-// 2. dequant_matmul_t_kernel, f32 activations: the CUDA-core kernel of the
-//    first port (no served config runs it). One warp a byte row, lanes
-//    stride D 4 code bytes at a time, the D-block scale folded into each
-//    lane's partial sum of 4 elements, a shuffle reduction finishes the
-//    row; a block stages MT rows of x as f32 and walks byte rows
+// 2. dequant_matmul_t_kernel, CUDA cores: f32 activations, and bf16 ones
+//    whose x rows do not fit the tensor-core kernel's shared memory (D
+//    above about 12k; no served config runs it). One warp a byte row,
+//    lanes stride D 4 code bytes at a time, the D-block scale folded into
+//    each lane's partial sum of 4 elements, a shuffle reduction finishes
+//    the row; a block stages MT rows of x as f32 and walks byte rows
 //    grid-stride.
 
 #include <cuda_bf16.h>
@@ -95,12 +95,19 @@ struct GeometryT {
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) {
   return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
 }
 
 __device__ __forceinline__ float dot4(const float4& a, const float* w) {
@@ -238,6 +245,7 @@ constexpr int kTable = 256 * 32;  // words: 256 entries x one copy per bank
 constexpr int kTileRows = 16;     // byte rows a warp tile
 constexpr int kChunk = 64;        // d a chunk: 16 bytes a lane
 constexpr int kStageUnroll = 8;   // x pieces a thread loads before storing
+constexpr int kRing = 2;          // chunks of code loads in registers
 
 struct Args {
   const uint16_t* x;       // bf16 (M, D)
@@ -440,7 +448,7 @@ __device__ __forceinline__ void compute(
   }
 }
 
-template <int BITS, int NT, int RING, bool BLK16>
+template <int BITS, int NT, bool BLK16>
 __global__ void __launch_bounds__(kThreads, 2) kernel(Args a) {
   constexpr int MT = 8 * NT;
   constexpr int TILES = BITS == 4 ? 2 : 1;  // MMA row tiles a warp tile
@@ -458,15 +466,15 @@ __global__ void __launch_bounds__(kThreads, 2) kernel(Args a) {
   const int n_tiles = (byte_rows + kTileRows - 1) / kTileRows;
   const int wt_step = gridDim.x * kWarps;
 
-  // The ring: chunk r of the current tile lives in set r % RING. The first
-  // tile's first RING - 1 chunks are loaded before the staging.
+  // The ring: chunk r of the current tile lives in set r % kRing. The
+  // first tile's first kRing - 1 chunks are loaded before the staging.
   int wt = blockIdx.x * kWarps + warp;
   Lane<BITS> L;
-  Chunk<BITS, BLK16> ring[RING];
+  Chunk<BITS, BLK16> ring[kRing];
   if (wt < n_tiles) {
     L.setup(a, wt, g, n_sb, byte_rows);
 #pragma unroll
-    for (int i = 0; i < RING - 1; ++i)
+    for (int i = 0; i < kRing - 1; ++i)
       if (i < n_chunks) load_chunk(a, L, i, t, n_sb, ring[i]);
   }
 
@@ -519,15 +527,15 @@ __global__ void __launch_bounds__(kThreads, 2) kernel(Args a) {
         for (int q = 0; q < 4; ++q) acc[i][nt][q] = 0.f;
 
 #pragma unroll 1
-    for (int c0 = 0; c0 < n_chunks; c0 += RING) {
+    for (int c0 = 0; c0 < n_chunks; c0 += kRing) {
 #pragma unroll
-      for (int i = 0; i < RING; ++i) {
+      for (int i = 0; i < kRing; ++i) {
         const int c = c0 + i;
         if (c < n_chunks) {
-          // set (i + RING - 1) % RING held chunk c - 1, computed last step
-          if (c + RING - 1 < n_chunks)
-            load_chunk(a, L, c + RING - 1, t, n_sb,
-                       ring[(i + RING - 1) % RING]);
+          // set (i + kRing - 1) % kRing held chunk c - 1, computed last step
+          if (c + kRing - 1 < n_chunks)
+            load_chunk(a, L, c + kRing - 1, t, n_sb,
+                       ring[(i + kRing - 1) % kRing]);
           compute<BITS, NT, BLK16>(a, L, ring[i], c, t, n_sb,
                                    xs_l + c * kChunk, xs_stride, tbl_l, acc);
         }
@@ -559,7 +567,7 @@ __global__ void __launch_bounds__(kThreads, 2) kernel(Args a) {
     if (wt < n_tiles) {
       L.setup(a, wt, g, n_sb, byte_rows);
 #pragma unroll
-      for (int i = 0; i < RING - 1; ++i)
+      for (int i = 0; i < kRing - 1; ++i)
         if (i < n_chunks) load_chunk(a, L, i, t, n_sb, ring[i]);
     }
   }
@@ -567,7 +575,7 @@ __global__ void __launch_bounds__(kThreads, 2) kernel(Args a) {
 
 // Allow this instance `smem` bytes of dynamic shared memory on the current
 // device (raised only, once per size).
-template <int BITS, int NT, int RING, bool BLK16>
+template <int BITS, int NT, bool BLK16>
 cudaError_t allow_smem(size_t smem) {
   static size_t allowed[32] = {};  // per device
   int dev = 0;
@@ -575,7 +583,7 @@ cudaError_t allow_smem(size_t smem) {
   if (err != cudaSuccess) return err;
   if (dev >= 32) return cudaErrorInvalidDevice;
   if (allowed[dev] < smem) {
-    err = cudaFuncSetAttribute(kernel<BITS, NT, RING, BLK16>,
+    err = cudaFuncSetAttribute(kernel<BITS, NT, BLK16>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
@@ -584,72 +592,54 @@ cudaError_t allow_smem(size_t smem) {
   return cudaSuccess;
 }
 
-template <int BITS, int NT, int RING, bool BLK16>
+template <int BITS, int NT, bool BLK16>
 int launch(const Args& a, int n_blocks, cudaStream_t stream) {
   const size_t smem = smem_bytes(NT, a.D);
-  const cudaError_t err = allow_smem<BITS, NT, RING, BLK16>(smem);
+  const cudaError_t err = allow_smem<BITS, NT, BLK16>(smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(n_blocks, (a.M + 8 * NT - 1) / (8 * NT));
-  kernel<BITS, NT, RING, BLK16><<<grid, kThreads, smem, stream>>>(a);
+  kernel<BITS, NT, BLK16><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// Registers, dynamic shared memory, resident blocks per SM and local
-// (spill) bytes of one instance at this D, into out[0..3].
-template <int BITS, int NT, int RING, bool BLK16>
-int info(int D, int* out) {
+// Resident blocks per SM of one instance at this D (registers and spills
+// are in nvcc's -Xptxas -v report).
+template <int BITS, int NT, bool BLK16>
+int info(int D, int* blocks) {
   const size_t smem = smem_bytes(NT, D);
-  auto k = kernel<BITS, NT, RING, BLK16>;
-  cudaFuncAttributes attr;
-  cudaError_t err = allow_smem<BITS, NT, RING, BLK16>(smem);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, k);
-  int blocks = 0;
+  cudaError_t err = allow_smem<BITS, NT, BLK16>(smem);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, kThreads,
-                                                        smem);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = attr.numRegs;
-  out[1] = (int)smem;
-  out[2] = blocks;
-  out[3] = (int)attr.localSizeBytes;
-  return 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, kernel<BITS, NT, BLK16>, kThreads, smem);
+  return (int)err;
 }
 
-// One instance per (bits, n8-tiles, ring depth, block % 16 == 0); ring
-// depths 2..4 where block % 16 == 0, else 2. do_info selects info().
+// One instance per (bits, n8-tiles, block % 16 == 0). do_info selects
+// info().
 template <int BITS, int NT>
-int pick(int ring, bool blk16, bool do_info, const Args& a, int n_blocks,
+int pick(bool blk16, bool do_info, const Args& a, int n_blocks,
          cudaStream_t s, int* out) {
-#define DMT_CASE(RG, B16)                                       \
-  return do_info ? info<BITS, NT, RG, B16>(a.D, out)            \
-                 : launch<BITS, NT, RG, B16>(a, n_blocks, s)
-  if (!blk16) {
-    if (ring == 2) DMT_CASE(2, false);
-    return (int)cudaErrorInvalidValue;
-  }
-  if (ring == 2) DMT_CASE(2, true);
-  if (ring == 3) DMT_CASE(3, true);
-  if (ring == 4) DMT_CASE(4, true);
-#undef DMT_CASE
-  return (int)cudaErrorInvalidValue;
+  if (blk16)
+    return do_info ? info<BITS, NT, true>(a.D, out)
+                   : launch<BITS, NT, true>(a, n_blocks, s);
+  return do_info ? info<BITS, NT, false>(a.D, out)
+                 : launch<BITS, NT, false>(a, n_blocks, s);
 }
 
 template <int BITS>
-int pick_nt(int nt, int ring, bool blk16, bool do_info, const Args& a,
-            int n_blocks, cudaStream_t s, int* out) {
-  if (nt == 1) return pick<BITS, 1>(ring, blk16, do_info, a, n_blocks, s, out);
-  if (nt == 2) return pick<BITS, 2>(ring, blk16, do_info, a, n_blocks, s, out);
-  if (nt == 4) return pick<BITS, 4>(ring, blk16, do_info, a, n_blocks, s, out);
+int pick_nt(int nt, bool blk16, bool do_info, const Args& a, int n_blocks,
+            cudaStream_t s, int* out) {
+  if (nt == 1) return pick<BITS, 1>(blk16, do_info, a, n_blocks, s, out);
+  if (nt == 2) return pick<BITS, 2>(blk16, do_info, a, n_blocks, s, out);
+  if (nt == 4) return pick<BITS, 4>(blk16, do_info, a, n_blocks, s, out);
   return (int)cudaErrorInvalidValue;
 }
 
-int dispatch(int bits, int nt, int ring, bool do_info, const Args& a,
-             int n_blocks, cudaStream_t s, int* out) {
+int dispatch(int bits, int nt, bool do_info, const Args& a, int n_blocks,
+             cudaStream_t s, int* out) {
   const bool blk16 = a.block % 16 == 0;
-  if (bits == 4)
-    return pick_nt<4>(nt, ring, blk16, do_info, a, n_blocks, s, out);
-  if (bits == 8)
-    return pick_nt<8>(nt, ring, blk16, do_info, a, n_blocks, s, out);
+  if (bits == 4) return pick_nt<4>(nt, blk16, do_info, a, n_blocks, s, out);
+  if (bits == 8) return pick_nt<8>(nt, blk16, do_info, a, n_blocks, s, out);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -661,17 +651,17 @@ int dispatch(int bits, int nt, int ring, bool do_info, const Args& a,
 // scales (V, D/block) bf16, out (M, V) in x's dtype. tile: the nibble
 // interleave tile along V (bits=4).
 //
-// bf16 x: the tensor-core kernel. `table` holds 256 words (byte -> bf16x2
-// {cb[b&15], cb[b>>4]} at bits=4, bf16 cb[b] at bits=8); `mt` (8, 16 or
-// 32) is the number of x rows a block stages, (256*32*4 + mt*XS*2) bytes
-// of shared memory with XS = D rounded up to 64, plus 4; `vec` (16, 8 or
-// 4, dividing D and the codes' alignment) is the width of one code load;
-// `ring` (2..4 where block % 16 == 0, else 2) the chunks in the register
-// ring; `n_blocks` blocks of 8 warps walk the tiles of 16 byte rows.
+// `table` given: the tensor-core kernel (bf16 x). `table` holds 256 words
+// (byte -> bf16x2 {cb[b&15], cb[b>>4]} at bits=4, bf16 cb[b] at bits=8);
+// `mt` (8, 16 or 32) is the number of x rows a block stages,
+// (256*32*4 + mt*XS*2) bytes of shared memory with XS = D rounded up to
+// 64, plus 4; `vec` (16, 8 or 4, dividing D and the codes' alignment) is
+// the width of one code load; `n_blocks` blocks of 8 warps walk the tiles
+// of 16 byte rows.
 //
-// f32 x: the CUDA-core kernel; `codebook` (n_codes,) f32; `mt` (1..32, a
-// power of two) is the number of x rows a block stages, (256 + mt*D)*4
-// bytes of shared memory; table, vec and ring are not read.
+// `table` null: the CUDA-core kernel; `codebook` (n_codes,) f32; `mt`
+// (1..32, a power of two) is the number of x rows a block stages,
+// (256 + mt*D)*4 bytes of shared memory; vec is not read.
 //
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int dequant_matmul_t_launch(const void* x, const void* codes,
@@ -681,15 +671,15 @@ extern "C" int dequant_matmul_t_launch(const void* x, const void* codes,
                                        int x_is_bf16, int M, int D, int V,
                                        int block, int bits, int tile,
                                        int n_codes, int mt, int n_blocks,
-                                       int vec, int ring, void* stream) {
+                                       int vec, void* stream) {
   if (M < 1 || D < 4 || V < 1 || D % 4 || block < 4 || block % 4 ||
       D % block || (bits != 4 && bits != 8) || n_codes < 1 ||
       n_codes > (bits == 4 ? 16 : 256) || n_blocks < 1 ||
       (bits == 4 && (tile < 2 || tile % 2 || V % tile)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_is_bf16) {
-    if (table == nullptr || (mt != 8 && mt != 16 && mt != 32) ||
+  if (table != nullptr) {
+    if (!x_is_bf16 || (mt != 8 && mt != 16 && mt != 32) ||
         (vec != 4 && vec != 8 && vec != 16) || D % vec)
       return (int)cudaErrorInvalidValue;
     const tc::Args a{static_cast<const uint16_t*>(x),
@@ -698,23 +688,26 @@ extern "C" int dequant_matmul_t_launch(const void* x, const void* codes,
                      static_cast<const uint32_t*>(table),
                      static_cast<uint16_t*>(out),
                      M, D, V, block, bits == 4 ? tile : V, vec};
-    return tc::dispatch(bits, mt / 8, ring, false, a, n_blocks, s, nullptr);
+    return tc::dispatch(bits, mt / 8, false, a, n_blocks, s, nullptr);
   }
   const GeometryT g{M, D, V, block, tile};
-  cudaError_t err =
-      bits == 4 ? dispatch_mt<4, float>(mt, x, codes, scales, codebook, n_codes, out, g, n_blocks, s)
-                : dispatch_mt<8, float>(mt, x, codes, scales, codebook, n_codes, out, g, n_blocks, s);
+  cudaError_t err;
+  if (x_is_bf16)
+    err = bits == 4 ? dispatch_mt<4, __nv_bfloat16>(mt, x, codes, scales, codebook, n_codes, out, g, n_blocks, s)
+                    : dispatch_mt<8, __nv_bfloat16>(mt, x, codes, scales, codebook, n_codes, out, g, n_blocks, s);
+  else
+    err = bits == 4 ? dispatch_mt<4, float>(mt, x, codes, scales, codebook, n_codes, out, g, n_blocks, s)
+                    : dispatch_mt<8, float>(mt, x, codes, scales, codebook, n_codes, out, g, n_blocks, s);
   return (int)err;
 }
 
-// The tensor-core instance for `bits`, `nt` n8-tiles, ring depth `ring` and
-// block (only block % 16 == 0 matters) at contraction length D: out[0..3] =
-// registers per thread, dynamic shared bytes per block, blocks resident per
-// SM, local (spill) bytes per thread.
-extern "C" int dequant_matmul_t_tc_info(int bits, int nt, int ring,
-                                        int block, int D, int* out) {
+// Blocks resident per SM of the tensor-core instance for `bits`, `nt`
+// n8-tiles and block (only block % 16 == 0 matters) at contraction length
+// D, into *blocks.
+extern "C" int dequant_matmul_t_tc_blocks_per_sm(int bits, int nt, int block,
+                                                 int D, int* blocks) {
   if (D < 4 || block < 4) return (int)cudaErrorInvalidValue;
   const tc::Args a{nullptr, nullptr, nullptr, nullptr, nullptr,
                    1, D, 1, block, 2, 4};
-  return tc::dispatch(bits, nt, ring, true, a, 1, nullptr, out);
+  return tc::dispatch(bits, nt, true, a, 1, nullptr, blocks);
 }

@@ -9,8 +9,9 @@ made.
 
 bf16 x runs the tensor-core kernel: one launch, one warp per 16 byte rows
 walking all of D (no K split, so two calls are bitwise equal), with the
-byte -> bf16x2 table of ``dequant_matmul`` (``_table``). f32 x runs the
-CUDA-core kernel.
+byte -> bf16x2 table of ``dequant_matmul`` (``_table``). f32 x, and bf16 x
+whose 8 staged rows do not fit the tensor-core kernel's shared memory (D
+above about 12k), run the CUDA-core kernel.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from repro_torch.kernels.dequant_matmul.dequant_matmul import _table
 # Launches made by this module's kernels since the count was last set to 0.
 launches = 0
 
-# f32 kernel (csrc dequant_matmul_t_kernel)
+# CUDA-core kernel (csrc dequant_matmul_t_kernel)
 MAX_M_TILE = 32                 # csrc: templates for 1, 2, 4, ..., 32 rows
 SMEM_BUDGET = 200 * 1024        # bytes of x a block may stage (of 227 KB)
 # bf16 tensor-core kernel (csrc tc::kernel)
@@ -34,9 +35,6 @@ TC_TABLE_BYTES = 256 * 32 * 4   # the byte table, one copy per bank
 TC_SMEM_MAX = 227 * 1024        # dynamic shared memory a block may take
 TC_BLOCKS_PER_SM = 2            # __launch_bounds__(256, 2)
 TC_WARP_ROWS = 16               # byte rows a warp tile
-# chunks in the register ring: 2 measured fastest on the H100 at every
-# served shape; csrc also builds 3 and 4 where block % 16 == 0
-TC_RING = 2
 
 
 def m_tile(M: int, D: int) -> int:
@@ -66,14 +64,12 @@ def tc_smem(nt: int, D: int) -> int:
 
 def tc_n_tiles(M: int, D: int) -> int:
     """n8-tiles of tokens a tensor-core block takes: ceil(M / 8) rounded up
-    to 1, 2 or 4, halved while its x does not fit in shared memory."""
+    to 1, 2 or 4, halved while its x does not fit in shared memory; 0 where
+    even one does not (the CUDA-core kernel serves that D)."""
     nt = 1 if M <= 8 else 2 if M <= 16 else 4
     while nt > 1 and tc_smem(nt, D) > TC_SMEM_MAX:
         nt //= 2
-    if tc_smem(nt, D) > TC_SMEM_MAX:
-        raise ValueError(f"dequant_matmul_t: D={D} does not fit the "
-                         "tensor-core kernel's shared memory")
-    return nt
+    return nt if tc_smem(nt, D) <= TC_SMEM_MAX else 0
 
 
 def code_vec(ptr: int, D: int) -> int:
@@ -139,60 +135,20 @@ def _check(x, codes, scales, codebook, block, bits):
         raise ValueError(f"{name}: codes must be 4-byte aligned")
 
 
-def _ring(ring, block: int) -> int:
-    """The ring depth to launch: ``TC_RING`` unless one of the built depths
-    (2..4 where block % 16 == 0) is asked for."""
-    if ring is None:
-        return TC_RING
-    if ring not in ((2, 3, 4) if block % 16 == 0 else (TC_RING,)):
-        raise ValueError(f"dequant_matmul_t: no ring depth {ring} is built "
-                         f"for block {block}")
-    return ring
-
-
-def launch_tc(x, codes, scales, codebook, block: int, bits: int,
-              ring=None) -> torch.Tensor:
-    """One launch of the tensor-core kernel (bf16 x) with ``ring`` chunks
-    in the register ring (None: ``TC_RING``); raises on a CUDA error."""
-    global launches
+def tc_blocks_per_sm(bits: int, M: int, D: int, block: int) -> int:
+    """Blocks of the tensor-core instance that serves ``M`` tokens at this
+    D and block resident on one SM (on the card). Its registers and spills
+    are in nvcc's ``-Xptxas -v`` report (``build.build(verbose=True)``)."""
     lib = build.load_library("dequant_matmul_t")
-    M, D = x.shape
-    V = codes.shape[0] * (2 if bits == 4 else 1)
-    nt = tc_n_tiles(M, D)
-    ring = _ring(ring, block)
-    table = _table(codebook, bits)
-    out = torch.empty(M, V, dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.dequant_matmul_t_launch(
-        x.data_ptr(), codes.data_ptr(), scales.data_ptr(),
-        codebook.data_ptr(), table.data_ptr(), out.data_ptr(), 1, M, D, V,
-        block, bits, nibble_k_tile(V) if bits == 4 else V, codebook.numel(),
-        8 * nt, tc_blocks(codes.shape[0], _sm_count(x.device.index)),
-        code_vec(codes.data_ptr(), D), ring, ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"dequant_matmul_t: CUDA launch failed with "
-                           f"cudaError_t {err}")
-    launches += 1
-    return out
-
-
-def tc_info(bits: int, M: int, D: int, block: int, ring=None) -> dict:
-    """Registers per thread, dynamic shared bytes per block, blocks
-    resident per SM, spill bytes and ring depth of the tensor-core instance
-    that serves ``M`` tokens at this D and block (on the card)."""
-    lib = build.load_library("dequant_matmul_t")
-    fn = lib.dequant_matmul_t_tc_info
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn = lib.dequant_matmul_t_tc_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
-    nt = tc_n_tiles(M, D)
-    ring = _ring(ring, block)
-    out = (ctypes.c_int * 4)()
-    err = fn(bits, nt, ring, block, D, out)
+    blocks = ctypes.c_int()
+    err = fn(bits, tc_n_tiles(M, D), block, D, ctypes.byref(blocks))
     if err != 0:
         raise RuntimeError(f"dequant_matmul_t: occupancy query failed with "
                            f"cudaError_t {err}")
-    return dict(registers=out[0], smem_bytes=out[1], blocks_per_sm=out[2],
-                spill_bytes=out[3], ring_depth=ring)
+    return blocks.value
 
 
 def dequant_matmul_t_cuda(x, codes, scales, codebook, block: int = 128,
@@ -201,20 +157,26 @@ def dequant_matmul_t_cuda(x, codes, scales, codebook, block: int = 128,
     global launches
     lib = build.load_library("dequant_matmul_t")
     _check(x, codes, scales, codebook, block, bits)
-    if x.dtype == torch.bfloat16:
-        return launch_tc(x, codes, scales, codebook, block, bits)
     M, D = x.shape
     V = codes.shape[0] * (2 if bits == 4 else 1)
     tile = nibble_k_tile(V) if bits == 4 else V
-    mt = m_tile(M, D)
-    blocks = n_blocks(codes.shape[0], (256 + mt * D) * 4,
-                      _sm_count(x.device.index))
+    n_sm = _sm_count(x.device.index)
+    nt = tc_n_tiles(M, D) if x.dtype == torch.bfloat16 else 0
+    if nt:
+        table = _table(codebook, bits)
+        geometry = (8 * nt, tc_blocks(codes.shape[0], n_sm),
+                    code_vec(codes.data_ptr(), D))
+    else:
+        table = None
+        mt = m_tile(M, D)
+        geometry = (mt, n_blocks(codes.shape[0], (256 + mt * D) * 4, n_sm), 0)
     out = torch.empty(M, V, dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.dequant_matmul_t_launch(
         x.data_ptr(), codes.data_ptr(), scales.data_ptr(),
-        codebook.data_ptr(), None, out.data_ptr(), 0, M, D, V, block, bits,
-        tile, codebook.numel(), mt, blocks, 0, 0, ctypes.c_void_p(stream))
+        codebook.data_ptr(), None if table is None else table.data_ptr(),
+        out.data_ptr(), int(x.dtype == torch.bfloat16), M, D, V, block, bits,
+        tile, codebook.numel(), *geometry, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"dequant_matmul_t: CUDA launch failed with "
                            f"cudaError_t {err}")

@@ -447,20 +447,13 @@ def test_dequant_matmul_t_tensor_core_choices():
     assert [dqmt.tc_n_tiles(M, 1152) for M in (1, 4, 8, 9, 16, 17, 32, 64)] \
         == [1, 1, 1, 2, 2, 4, 4, 4]
     assert dqmt.tc_n_tiles(32, 4096) == 2      # 32 rows would not fit
-    with pytest.raises(ValueError, match="shared memory"):
-        dqmt.tc_n_tiles(1, 16384)
+    assert dqmt.tc_n_tiles(1, 16384) == 0      # the CUDA-core kernel's
     # 131072 byte rows: 1024 blocks' worth of tiles, one wave of 2 per SM
     assert dqmt.tc_blocks(131072, 132) == 264
     assert dqmt.tc_blocks(520, 132) == 5
     assert dqmt.code_vec(0, 1152) == 16 and dqmt.code_vec(8, 1152) == 8
     assert dqmt.code_vec(4, 1152) == 4 and dqmt.code_vec(0, 96) == 16
     assert dqmt.code_vec(0, 1160) == 8 and dqmt.code_vec(0, 1156) == 4
-    # the register ring: the default at any block, 3 and 4 only where
-    # block % 16 == 0
-    assert dqmt._ring(None, 20) == dqmt._ring(None, 64) == dqmt.TC_RING == 2
-    assert dqmt._ring(4, 64) == 4
-    with pytest.raises(ValueError, match="ring depth"):
-        dqmt._ring(3, 20)
 
 
 def test_decode_attention_split_choices():
