@@ -21,13 +21,21 @@ Phases, each printed as JSON lines:
    gemma3-1b's tied unembed (262144 x 1152, M = 1, 4, 32, and 8-bit), each
    called twice with bitwise-equal results, with its registers, spills
    and blocks per SM; ``block_quant`` at hd 256 and 64, rows 4, 32 and
-   256, q8 and q4 (bitwise); ``decode_attention_quant`` at gemma3-1b's
+   256, q8 and q4, the single-tensor call and the paired k + v call
+   (``block_quant_kv``, the served cache write; packed, scattered, and
+   from unaligned rows), bitwise; ``decode_attention_quant`` at gemma3-1b's
    shapes (ring S = 520 and linear S = 1032, T = 1 and 8, q8 and q4, a
-   wrapped ring).
+   wrapped ring). Besides the one-call-per-event-pair time of each case, a
+   launch-bound reading (``launch_us``: 200 back-to-back calls between one
+   event pair) times ``decode_attention_quant`` and, at gemma3-1b's KV
+   write shapes, the old pair of single-tensor ``block_quant`` calls and
+   the paired call in turns, beside an empty kernel launched through the
+   same ctypes route (the launch floor) and the host's time per call.
 3. serve paper-100m full: babsmax64:n4 packed, seeded weights, 4 slots x 4
    requests; launch counts, resident bytes, and card-vs-CPU logits/tokens.
 4. serve deepseek-7b full: the same at kv_len 256, weights initialised,
-   quantised and packed on the card.
+   quantised and packed on the card; the card's logits of the prefill step
+   and the first decode step held to the CPU plain path at full depth.
 5. serve gemma3-1b full with a q8 KV cache (tied embeddings, 5:1 ring
    groups): 4 requests, then one 600-token prompt that wraps the local
    groups' 520-slot rings, held step by step to the same request served
@@ -99,14 +107,16 @@ PROJECTIONS = {
                   ((6912, 1152), 26, "w_down")],
 }
 # launches per decode step of each kernel (the design's numbers): gemma3-1b
-# runs 7 projections per layer, the tied unembed once, block_quant for k and
-# v and decode_attention_quant once per layer (26 layers)
+# runs 7 projections per layer, the tied unembed once, block_quant once per
+# layer (k and v in one block_quant_kv launch) and decode_attention_quant
+# once per layer (26 layers)
 LAUNCHES_PER_STEP = {
     "paper-100m": {"dequant_matmul": 85},
     "deepseek-7b": {"dequant_matmul": 211},
     "gemma3-1b": {"dequant_matmul": 182, "dequant_matmul_t": 1,
-                  "block_quant": 52, "decode_attention_quant": 26},
+                  "block_quant": 26, "decode_attention_quant": 26},
 }
+LAUNCH_RUN = 200                  # calls per launch-bound reading
 UNEMBED_T = (262144, 1152)        # gemma3-1b's tied table (V, D)
 KV_BYTES = {"q8": 32_381_440, "q4": 16_439_808}   # gemma3-1b, 4 x 1024
 WEIGHT_BYTES = {
@@ -147,6 +157,45 @@ def time_ms(fn, flush, reps=20):
         end.record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def launch_us(fn, flush, n=LAUNCH_RUN):
+    """Device and host microseconds per call of a launch-bound ``fn`` over
+    ``n`` back-to-back calls: one event pair around the run, the L2 cache
+    flushed once before it, and the GPU held by a spin until the host has
+    queued all ``n`` calls, so the events see the device's rate and not the
+    host's. The host's time per call is its clock over the same loop (no
+    synchronise). The spin is sized to three times the host's time for
+    ``n`` calls (timed over a short run first); ``queued_ahead`` says it
+    outlasted the host's loop (the start event had not run when the loop
+    ended), else the spin doubles and the run repeats, up to three
+    times."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        fn()
+    host_ms = (time.perf_counter() - t0) / 20 * n * 1e3
+    torch.cuda.synchronize()
+    cycles = int(SPIN_CYCLES * max(1.0, 3 * host_ms))
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        flush.zero_()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host_s = time.perf_counter() - t0
+        ahead = not start.query()
+        end.record()
+        torch.cuda.synchronize()
+        if ahead:
+            break
+        cycles *= 2
+    return dict(device_us=start.elapsed_time(end) * 1e3 / n,
+                host_us=host_s * 1e6 / n, calls=n, queued_ahead=ahead)
 
 
 def bound_ms(nbytes, flops):
@@ -262,49 +311,92 @@ def matmul_t_case(mods, dev, gen, cb, flush, V, D, M, bits, tc_ptxas):
 
 
 def block_quant_case(mods, dev, gen, flush, rows, hd, fmt):
-    """Quantise ``rows`` bf16 rows of ``hd`` (the serving input: fresh k or
-    v rows, block = hd): codes and scales bitwise equal to the plain
-    version, also in the fused pack + scatter form the cache write uses,
-    which is the form timed. No single PyTorch call computes this."""
+    """Quantise ``rows`` bf16 rows of ``hd`` (the serving input: fresh k
+    and v rows, block = hd): the single-tensor call, and the paired call
+    (``block_quant_kv``, k and v in one launch, packed and scattered into
+    two caches: the served write, which is the form timed as
+    ``kernel_ms``), also from rows that start mid-tensor (unaligned: the
+    scalar instance). Codes and scales must equal the plain version's bit
+    for bit. ``single_ms`` times one single-tensor call of the same write
+    (the parent's path made two a layer). No single PyTorch call computes
+    this."""
     from repro_torch.kernels.block_quant.ref import (block_quant_ref,
                                                      pack_pairs)
     from repro_torch.serve.cache import kv_codebook
+    mod = mods["block_quant"]
     cb = kv_codebook(fmt, dev)
     pack = fmt == "q4"
-    x = (torch.randn(rows, hd, generator=gen, device=dev) * 3).to(
-        torch.bfloat16)
-    x[1] = 0
-    kern = mods["block_quant"].block_quant_cuda
-    codes, scales = kern(x, cb, hd)
-    want_c, want_s = block_quant_ref(x, cb, hd)
+    k, v = ((torch.randn(rows, hd, generator=gen, device=dev) * 3).to(
+        torch.bfloat16) for _ in range(2))
+    k[1] = 0
+    want = [block_quant_ref(x, cb, hd) for x in (k, v)]
+    codes, scales = mod.block_quant_cuda(k, cb, hd)
     torch.cuda.synchronize()
-    check(torch.equal(codes, want_c) and torch.equal(scales, want_s),
+    check(torch.equal(codes, want[0][0]) and torch.equal(scales, want[0][1]),
           f"block_quant {rows}x{hd} {fmt}: codes or scales differ from the "
           "plain version")
-    slots = 4 * rows                  # a cache of 4x the rows, scattered
+    slots = 4 * rows                  # caches of 4x the rows, scattered
     width = hd // 2 if pack else hd
-    buf = (torch.zeros(slots, width, dtype=torch.uint8, device=dev),
-           torch.zeros(slots, 1, device=dev))
+
+    def caches():
+        return [(torch.zeros(slots, width, dtype=torch.uint8, device=dev),
+                 torch.zeros(slots, 1, device=dev)) for _ in range(2)]
     dest = torch.randperm(slots, generator=gen, device=dev)[:rows]
-    kern(x, cb, hd, pack=pack, out=buf, rows=dest)
-    torch.cuda.synchronize()
-    want_packed = pack_pairs(want_c) if pack else want_c
-    check(torch.equal(buf[0][dest], want_packed) and
-          torch.equal(buf[1][dest], want_s),
-          f"block_quant {rows}x{hd} {fmt}: fused pack/scatter differs")
+
+    def unaligned(x):                 # the same rows, 6 bytes past 16
+        buf = torch.empty(x.numel() + 16, dtype=x.dtype, device=dev)
+        off = (-buf.data_ptr() % 16) // 2 + 3
+        return buf[off:off + x.numel()].view(x.shape).copy_(x)
+    for kk, vv in ((k, v), (unaligned(k), unaligned(v))):
+        bufs = caches()
+        n0 = mod.launches
+        mod.block_quant_kv_cuda(kk, vv, cb, hd, pack=pack, out_k=bufs[0],
+                                out_v=bufs[1], rows=dest)
+        torch.cuda.synchronize()
+        check(mod.launches == n0 + 1, "block_quant_kv: not one launch")
+        for (c, s_), (wc, ws) in zip(bufs, want):
+            check(torch.equal(c[dest], pack_pairs(wc) if pack else wc) and
+                  torch.equal(s_[dest], ws),
+                  f"block_quant_kv {rows}x{hd} {fmt} (x at "
+                  f"{kk.data_ptr() % 16} mod 16): the paired write differs "
+                  "from the plain version")
+    bufs = caches()
+
+    def paired():
+        mod.block_quant_kv_cuda(k, v, cb, hd, pack=pack, out_k=bufs[0],
+                                out_v=bufs[1], rows=dest)
+
+    def single_pair():
+        for x, b in zip((k, v), bufs):
+            mod.block_quant_cuda(x, cb, hd, pack=pack, out=b, rows=dest)
 
     def plain():
-        c, s = block_quant_ref(x, cb, hd)
-        buf[0][dest] = pack_pairs(c) if pack else c
-        buf[1][dest] = s
-    nbytes = rows * hd * 2 + rows * 8 + rows * width + rows * 4
-    return dict(
-        rows=rows, hd=hd, fmt=fmt, bytes=nbytes, flops=0,
+        for x, b in zip((k, v), bufs):
+            c, s_ = block_quant_ref(x, cb, hd)
+            b[0][dest] = pack_pairs(c) if pack else c
+            b[1][dest] = s_
+    nbytes = 2 * (rows * hd * 2 + rows * width + rows * 4) + rows * 8 \
+        + cb.numel() * 4
+    out = dict(
+        rows=rows, hd=hd, fmt=fmt, tensors=2, bytes=nbytes, flops=0,
         bound_ms=bound_ms(nbytes, 0),
-        kernel_ms=time_ms(lambda: kern(x, cb, hd, pack=pack, out=buf,
-                                       rows=dest), flush),
+        kernel_ms=time_ms(paired, flush),
+        single_ms=time_ms(lambda: mod.block_quant_cuda(
+            k, cb, hd, pack=pack, out=bufs[0], rows=dest), flush),
         plain_ms=time_ms(plain, flush), library_ms=None, max_abs_err=0.0,
         bitwise=True)
+    if hd == 256 and rows in (4, 32):     # gemma3-1b's decode and prefill
+        # in turns: the old pair, the paired call, the floor, and back
+        order = [("single_pair", single_pair), ("paired", paired),
+                 ("floor", mod.launch_floor)]
+        readings = {name: [] for name, _ in order}
+        for name, fn in order + order[::-1]:
+            readings[name].append(launch_us(fn, flush))
+        out["launch_us"] = {
+            name: dict(device_us=float(np.mean([r["device_us"] for r in rs])),
+                       host_us=float(np.mean([r["host_us"] for r in rs])),
+                       runs=rs) for name, rs in readings.items()}
+    return out
 
 
 ATTN_CASES = [
@@ -366,6 +458,8 @@ def attention_case(mods, dev, gen, flush, T, S, ring, window, starts, fmt):
         bound_by=bound_by(nbytes, flops),
         kernel_ms=time_ms(lambda: kern(*args, window, ring=ring, bits=bits),
                           flush),
+        launch_us=launch_us(lambda: kern(*args, window, ring=ring, bits=bits),
+                            flush),
         plain_ms=time_ms(lambda: decode_attention_quant_ref(
             *args, window=window, ring=ring, bits=bits), flush),
         library_ms=time_ms(lambda: sdpa(qt, kd, vd,
@@ -597,16 +691,22 @@ def hold_logits(got, want, what):
 
 
 def kv_witness(stats):
-    """A ``layers.write_kv`` for the card-cache replay: writes nothing, and
-    holds the codes and scales the plain path gives this step's new k or v
-    (the CPU's own wk/wv, k-norm, RoPE and quantisation) to those the card
-    wrote at the same cache rows. Adds to ``stats``: codes compared, codes
-    that differ, the largest difference in codepoints, and the largest
-    relative difference of a scale."""
+    """A ``layers.write_kv_pair`` for the card-cache replay: writes nothing,
+    and holds the codes and scales the plain path gives this step's new k
+    and v (the CPU's own wk/wv, k-norm, RoPE and quantisation) to those the
+    card wrote at the same cache rows. Adds to ``stats``: codes compared,
+    codes that differ, the largest difference in codepoints, and the
+    largest relative difference of a scale."""
     from repro_torch.kernels.block_quant.ref import block_quant_ref
     from repro_torch.models.layers import QuantisedKV, codebook_bits, kv_rows
 
-    def write(cache, new, rows, slots, codebook=None, dest=None):
+    def write_pair(k_cache, v_cache, k_new, v_new, rows, slots,
+                   codebook=None, dest=None):
+        for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+            hold(cache, new, rows, slots, codebook, dest)
+        return k_cache, v_cache
+
+    def hold(cache, new, rows, slots, codebook, dest):
         check(isinstance(cache, QuantisedKV), "the card-cache replay "
               "expects quantised caches only")
         B, T, K, hd = new.shape
@@ -628,8 +728,7 @@ def kv_witness(stats):
                                       int(step.max()))
         stats["max_scale_rel"] = max(stats["max_scale_rel"],
                                      float(rel.max()))
-        return cache
-    return write
+    return write_pair
 
 
 def hold_kv_witness(stats):
@@ -667,9 +766,9 @@ def replay_on_cpu(eng, records, card_cache=False, kv_stats=None):
     params = params_to(eng.params, cpu)
     state = alloc_decode_state(eng.fam, eng.cfg, eng.B, eng.kv_len,
                                slack=eng.prefill_chunk, device=cpu)
-    write_kv = layers.write_kv
+    write_kv_pair = layers.write_kv_pair
     if card_cache:
-        layers.write_kv = kv_witness(kv_stats)
+        layers.write_kv_pair = kv_witness(kv_stats)
     try:
         with torch.inference_mode():
             for rec in records:
@@ -691,7 +790,7 @@ def replay_on_cpu(eng, records, card_cache=False, kv_stats=None):
                                f"card vs CPU plain path, step pos "
                                f"{int(rec['pos'][i])}")
     finally:
-        layers.write_kv = write_kv
+        layers.write_kv_pair = write_kv_pair
 
 
 def compare_with_cpu(eng, records, card_cache=False, kv_stats=None):
@@ -707,53 +806,37 @@ def compare_with_cpu(eng, records, card_cache=False, kv_stats=None):
     return worst, n_margin
 
 
-def layer0_check(eng, dev):
-    """Layer 0's seven packed weights and the unembed on random bf16
-    activations (M = 4): kernel against the plain version on the card."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.dequant_matmul.ref import dequant_matmul_ref
-    gen = torch.Generator(device=dev).manual_seed(1)
-    lp = eng.params["layers"]
-    ws = {k: lp[k].layer(0) for k in ("wq", "wk", "wv", "wo", "w_gate",
-                                      "w_up", "w_down")}
-    ws["unembed"] = eng.params["unembed"]
-    worst = 0.0
-    for name, w in ws.items():
-        x = torch.randn(4, w.k_dim, generator=gen, device=dev).to(
-            torch.bfloat16)
-        y = ops.dequant_matmul(x, w.codes, w.scales, w.codebook(), w.block,
-                               w.bits)
-        y_plain = dequant_matmul_ref(x, w.codes, w.scales, w.codebook(),
-                                     w.block, w.bits)
-        scale = float(y_plain.float().abs().max())
-        torch.testing.assert_close(y.float(), y_plain.float(), rtol=1.6e-2,
-                                   atol=1e-2 * scale, msg=name)
-        worst = max(worst, float((y.float() - y_plain.float()).abs().max()))
-    return worst
-
-
 def short_requests(vocab, seed=0):
     rng = np.random.default_rng(seed)
     return [(rng.integers(0, vocab, 8).tolist(), 16) for _ in range(4)]
 
 
-def serve_phase(arch, dev, mods, compare_cpu):
+def serve_phase(arch, dev, mods, compare_steps=None):
+    """Serve ``arch`` full and hold the card's logits to the CPU plain path
+    replaying the same steps at full depth: every step, or the first
+    ``compare_steps`` (the prefill step and the decode steps after it)."""
     eng, setup_s = build_engine(arch, dev)
     wb = eng.weight_bytes()
     check({k: wb[k] for k in WEIGHT_BYTES[arch]} == WEIGHT_BYTES[arch],
           f"{arch} weight_bytes {wb} != {WEIGHT_BYTES[arch]}")
     reqs = short_requests(eng.cfg.vocab)
-    done, stats, records = serve(eng, mods, reqs, keep_logits=compare_cpu)
+    done, stats, records = serve(eng, mods, reqs, keep_logits=True)
     check_run(arch, done, stats, reqs)
     out = dict(phase="serve", arch=arch, setup_s=setup_s,
                weight_bytes=wb, cache_bytes=eng.cache_bytes()["total"],
                peak_mem_bytes=torch.cuda.max_memory_allocated(dev), **stats)
     emit(phase="profile", arch=arch, **profile_steps(eng))
-    if compare_cpu:
-        worst, n = compare_with_cpu(eng, records)
-        out.update(cpu_max_rel_logit_err=worst, cpu_margin_tokens=n)
-    else:
-        out["layer0_max_abs_err"] = layer0_check(eng, dev)
+    if compare_steps is not None:
+        records = records[:compare_steps]
+        check(records[0]["T"] > 1 and records[-1]["T"] == 1,
+              f"{arch}: the compare needs the prefill and a decode step")
+    t0 = time.monotonic()
+    worst, n = compare_with_cpu(eng, records)
+    out.update(cpu_max_rel_logit_err=worst, cpu_margin_tokens=n,
+               cpu_compared_steps=len(records),
+               cpu_compared_layers=eng.cfg.n_layers,
+               cpu_compare_s=time.monotonic() - t0)
+    del records
     out["tokens"] = {g.rid: g.tokens for g in done}
     emit(**out)
     del eng
@@ -1012,6 +1095,20 @@ def summary(rows, runs):
                   lambda r: r["launches_per_step"])
     emit(phase="summary", measured_over="one deepseek-7b decode step at "
          "M=4 (211 launches)", kernel="dequant_matmul", **ds)
+    # block_quant per gemma3-1b decode step (hd 256, 4 rows): the paired
+    # call once a layer against two single-tensor calls a layer (the
+    # parent's path), by one call per event pair and launch-bound
+    bq = next(r for r in rows["block_quant"] if r["rows"] == 4 and
+              r["hd"] == 256 and r["fmt"] == "q8")
+    lu, n = bq["launch_us"], g_step["block_quant"]
+    emit(phase="summary", kernel="block_quant", measured_over="one "
+         f"gemma3-1b decode step (B=4, q8 cache, {n} layers)",
+         paired_ms=bq["kernel_ms"] * n, single_pair_ms=bq["single_ms"] * 2 * n,
+         paired_launch_bound_ms=lu["paired"]["device_us"] * n * 1e-3,
+         single_pair_launch_bound_ms=lu["single_pair"]["device_us"] * n * 1e-3,
+         floor_us=lu["floor"]["device_us"],
+         paired_host_ms=lu["paired"]["host_us"] * n * 1e-3,
+         single_pair_host_ms=lu["single_pair"]["host_us"] * n * 1e-3)
     line = []
     for name, k in KERNELS.items():
         st = steps[name]
@@ -1054,8 +1151,8 @@ def main() -> int:
 
     rows = kernel_phase(mods, dev, tc_ptxas)
     emit(phase="timing", kernel_phase_end_s=time.monotonic() - t_start)
-    paper = serve_phase("paper-100m", dev, mods, compare_cpu=True)
-    deepseek = serve_phase("deepseek-7b", dev, mods, compare_cpu=False)
+    paper = serve_phase("paper-100m", dev, mods)
+    deepseek = serve_phase("deepseek-7b", dev, mods, compare_steps=2)
     emit(phase="timing", dense_serve_end_s=time.monotonic() - t_start)
     gemma = gemma3_phase(dev, mods)
     emit(phase="timing", gemma3_end_s=time.monotonic() - t_start)

@@ -3,7 +3,8 @@
   dequant_matmul          fused dequantise @ x          csrc/dequant_matmul.cu
   dequant_matmul_t        x @ dequantise.T (tied unembed)
                                                         csrc/dequant_matmul_t.cu
-  block_quant             block-absmax quantisation (KV writes)
+  block_quant             block-absmax quantisation; block_quant_kv
+                          writes a layer's k and v in one launch
                                                         csrc/block_quant.cu
   decode_attention_quant  decode attention from quantised KV
                                                         csrc/decode_attention.cu

@@ -30,15 +30,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# library name -> (its C launch function, that function's argument types)
+# library name -> {its C functions: their argument types}
 SIGNATURES = {
-    "dequant_matmul": ("dequant_matmul_launch",
-                       [_P] * 8 + [_I] * 11 + [_P]),
-    "dequant_matmul_t": ("dequant_matmul_t_launch",
-                         [_P] * 6 + [_I] * 11 + [_P]),
-    "block_quant": ("block_quant_launch", [_P] * 5 + [_I] * 7 + [_P]),
-    "decode_attention": ("decode_attention_quant_launch",
-                         [_P] * 10 + [_I] * 12 + [_F, _P]),
+    "dequant_matmul": {"dequant_matmul_launch": [_P] * 8 + [_I] * 11 + [_P]},
+    "dequant_matmul_t": {
+        "dequant_matmul_t_launch": [_P] * 6 + [_I] * 11 + [_P]},
+    "block_quant": {"block_quant_launch": [_P] * 8 + [_I] * 8 + [_P],
+                    "block_quant_floor_launch": [_P]},
+    "decode_attention": {
+        "decode_attention_quant_launch": [_P] * 10 + [_I] * 12 + [_F, _P]},
 }
 
 
@@ -115,14 +115,14 @@ def build(verbose: bool = False) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
-    """Build if needed and load one library, with its C signature set."""
+    """Build if needed and load one library, with its C signatures set."""
     import torch
     if not torch.cuda.is_available():
         raise RuntimeError(f"{name}: no CUDA device; the kernel runs only on "
                            "the card")
     lib = ctypes.CDLL(str(build()[name]))
-    fn_name, argtypes = SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib

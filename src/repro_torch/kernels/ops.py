@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from .block_quant.block_quant import block_quant_cuda
+from .block_quant.block_quant import block_quant_cuda, block_quant_kv_cuda
 from .block_quant.ref import block_quant_ref, pack_pairs
 from .decode_attention.decode_attention import decode_attention_quant_cuda
 from .decode_attention.ref import decode_attention_quant_ref, dequant_kv_ref
@@ -51,6 +51,24 @@ def block_quant(x, codebook, block: int = 128, *, pack: bool = False,
     if x.device.type == "cuda":
         return block_quant_cuda(x, codebook, block, pack=pack, out=out,
                                 rows=rows)
+    return _block_quant_plain(x, codebook, block, pack, out, rows)
+
+
+def block_quant_kv(k, v, codebook, block: int, *, pack: bool = False,
+                   out_k, out_v, rows):
+    """The served KV write: quantise a layer's fresh k and v rows (each
+    (rows, cols), alike) into their caches ``out_k`` and ``out_v`` (each
+    (codes, scales), viewed as rows) at the shared output ``rows`` — one
+    kernel launch on the card, two ``block_quant`` writes' worth of bytes.
+    Returns (out_k, out_v)."""
+    if k.device.type == "cuda":
+        return block_quant_kv_cuda(k, v, codebook, block, pack=pack,
+                                   out_k=out_k, out_v=out_v, rows=rows)
+    return (_block_quant_plain(k, codebook, block, pack, out_k, rows),
+            _block_quant_plain(v, codebook, block, pack, out_v, rows))
+
+
+def _block_quant_plain(x, codebook, block, pack, out, rows):
     codes, scales = block_quant_ref(x, codebook, block)
     if pack:
         codes = pack_pairs(codes)

@@ -7,7 +7,8 @@ multiplies an activation by a parameter: dense weights take the einsum of
 the call site, ``PackedTensor`` weights the fused ``dequant_matmul`` kernel
 (or ``dequant_matmul_t`` when the contraction runs along the packed table's
 blocked axis, the tied unembed). A quantised KV cache (:class:`QuantisedKV`)
-is written through ``block_quant`` and read through
+is written through ``block_quant`` (k and v of a layer in one
+``block_quant_kv`` call) and read through
 ``decode_attention_quant``. Each is the CUDA kernel on the card and its
 plain version on the CPU.
 """
@@ -290,6 +291,27 @@ def write_kv(cache, new, rows, slots, codebook=None, dest=None):
     return cache
 
 
+def write_kv_pair(k_cache, v_cache, k_new, v_new, rows, slots,
+                  codebook=None, dest=None):
+    """Write a layer's new k and v (B, T, K, hd) entries at (rows, slots)
+    **in place**, as two :func:`write_kv` calls would. A quantised pair
+    goes through one ``block_quant_kv`` call: one kernel launch on the card
+    quantises both into their caches at the shared ``dest`` rows."""
+    if not isinstance(k_cache, QuantisedKV):
+        write_kv(k_cache, k_new, rows, slots)
+        write_kv(v_cache, v_new, rows, slots)
+        return k_cache, v_cache
+    B, T, K, hd = k_new.shape
+    if dest is None:
+        dest = kv_rows(rows, slots, k_cache.codes.shape[1], K)
+    kops.block_quant_kv(k_new.reshape(B * T * K, hd).contiguous(),
+                        v_new.reshape(B * T * K, hd).contiguous(), codebook,
+                        block=hd, pack=codebook_bits(codebook) == 4,
+                        out_k=(k_cache.codes, k_cache.scales),
+                        out_v=(v_cache.codes, v_cache.scales), rows=dest)
+    return k_cache, v_cache
+
+
 def update_kv_cache(cache, new, pos, *, ring=False, codebook=None):
     """Write T new entries per batch row at that row's own position, **in
     place**: cache (B, S, K, hd) — or a :class:`QuantisedKV`, whose new rows
@@ -334,8 +356,8 @@ def attn_decode(x, p: AttnParams, k_cache, v_cache, geo: StepGeometry, cfg):
     k/v into the caches in place (quantising them for a quantised group),
     attend, project out."""
     q, k_new, v_new = qkv_project(x, p, geo.rot, cfg)
-    write_kv(k_cache, k_new, geo.rows, geo.slots, geo.codebook, geo.dest)
-    write_kv(v_cache, v_new, geo.rows, geo.slots, geo.codebook, geo.dest)
+    write_kv_pair(k_cache, v_cache, k_new, v_new, geo.rows, geo.slots,
+                  geo.codebook, geo.dest)
     if geo.mask is not None:
         o = attend(q, k_cache, v_cache, geo.mask)
     else:

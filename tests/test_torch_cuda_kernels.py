@@ -1,5 +1,6 @@
 """On the card: the CUDA kernels of the quantised-KV and tied-unembed path
-(``block_quant``, ``decode_attention_quant``, ``dequant_matmul_t``) against
+(``block_quant`` and its paired k + v write ``block_quant_kv``,
+``decode_attention_quant``, ``dequant_matmul_t``) against
 their plain torch versions on the same inputs. Every test here needs an
 NVIDIA GPU and skips elsewhere; the file imports nothing of JAX, so it runs
 on a machine that has only the port.
@@ -74,6 +75,107 @@ def test_block_quant_kernel_bitwise(cuda_device, fmt, hd, rows, dtype):
                         pack=True, out=(buf_c, buf_s), rows=dest)
         assert torch.equal(buf_c[dest].cpu(), pack_pairs(want_c))
         assert torch.equal(buf_s[dest].cpu(), want_s)
+
+
+def kv_rows_in(fmt, n, hd, seed):
+    """k and v (n, hd) f32 whose first rows are the quantiser's edges:
+    midpoint ties, a zero row, a round-down absmax, one sign."""
+    cb = kv_codebook(fmt)
+    order = [3, 1, 2, 4, 0] + list(range(5, max(n, 5)))
+    return [hard_rows(max(n, 5), hd, cb, seed + i)[order][:n]
+            for i in range(2)]
+
+
+def check_kv_write(k, v, cb, hd, block, fmt, device):
+    """One counted launch of the paired write into two scattered caches,
+    bitwise the plain version's at the named rows and nothing elsewhere."""
+    n = k.shape[0]
+    pack = fmt == "q4"
+    slots = n + 7
+    dest = torch.randperm(slots, generator=torch.Generator().manual_seed(n))[
+        :n]
+    bufs = [(torch.zeros(slots, hd // 2 if pack else hd, dtype=torch.uint8,
+                         device=device),
+             torch.zeros(slots, hd // block, device=device))
+            for _ in range(2)]
+    before = bq.launches
+    ops.block_quant_kv(k, v, cb.to(device), block=block, pack=pack,
+                       out_k=bufs[0], out_v=bufs[1], rows=dest.to(device))
+    torch.cuda.synchronize()
+    assert bq.launches == before + 1
+    rest = [r for r in range(slots) if r not in dest.tolist()]
+    for x, (c, s) in zip((k, v), bufs):
+        want_c, want_s = block_quant_ref(x.cpu(), cb, block)
+        assert torch.equal(c[dest].cpu(), pack_pairs(want_c) if pack
+                           else want_c)
+        assert torch.equal(s[dest].cpu(), want_s)
+        assert not c[rest].any() and not s[rest].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", FMTS)
+@pytest.mark.parametrize("rows", [1, 4, 32, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_quant_kv_kernel_bitwise(cuda_device, fmt, rows, dtype):
+    """The served KV write at gemma3-1b's head dim (256): k and v in one
+    launch, codes and scales bitwise the plain version's."""
+    cb = kv_codebook(fmt)
+    k, v = (x.to(dtype).to(cuda_device)
+            for x in kv_rows_in(fmt, rows, 256, seed=rows))
+    check_kv_write(k, v, cb, 256, 256, fmt, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", FMTS)
+@pytest.mark.parametrize("hd,block,offset", [
+    (64, 64, 0),      # 8 lanes a row, four rows a warp
+    (64, 64, 3),      # rows start mid-tensor: unaligned, scalar loads
+    (256, 256, 1),
+    (256, 64, 0),     # four blocks a row
+    (32, 32, 0), (40, 40, 0),
+    (20, 20, 0),      # a block of no whole 16-byte chunk
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_quant_kv_kernel_layouts(cuda_device, fmt, hd, block, offset,
+                                       dtype):
+    cb = kv_codebook(fmt)
+    xs = []
+    for x in kv_rows_in(fmt, 12, hd, seed=hd + offset):
+        buf = torch.zeros(x.numel() + offset, dtype=dtype,
+                          device=cuda_device)
+        xs.append(buf[offset:].view(x.shape).copy_(x.to(dtype)))
+    check_kv_write(*xs, cb, hd, block, fmt, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad,match", [
+    ("v_rows", "must match k"), ("v_dtype", "must match k"),
+    ("rows_len", "out needs rows"), ("rows_dtype", "out needs rows"),
+    ("out_v_short", "do not hold rows"), ("rows_cpu", "CUDA device"),
+])
+def test_block_quant_kv_kernel_refuses_mismatches(cuda_device, bad, match):
+    """A v unlike k, rows that do not name one output row per input row or
+    lie elsewhere, and an output that does not hold whole rows raise
+    before any launch."""
+    d = cuda_device
+    kw = dict(k=torch.randn(4, 64, device=d), v=torch.randn(4, 64, device=d),
+              out_k=(torch.zeros(8, 64, dtype=torch.uint8, device=d),
+                     torch.zeros(8, 1, device=d)),
+              out_v=(torch.zeros(8, 64, dtype=torch.uint8, device=d),
+                     torch.zeros(8, 1, device=d)),
+              rows=torch.arange(4, device=d) * 2)
+    kw.update({"v_rows": dict(v=torch.randn(5, 64, device=d)),
+               "v_dtype": dict(v=kw["v"].to(torch.bfloat16)),
+               "rows_len": dict(rows=torch.arange(3, device=d)),
+               "rows_dtype": dict(rows=kw["rows"].int()),
+               "out_v_short": dict(out_v=(kw["out_v"][0][:, :63],
+                                          kw["out_v"][1])),
+               "rows_cpu": dict(rows=kw["rows"].cpu())}[bad])
+    before = bq.launches
+    with pytest.raises(ValueError, match=match):
+        ops.block_quant_kv(kw.pop("k"), kw.pop("v"),
+                           kv_codebook("q8").to(d), block=64, **kw)
+    assert bq.launches == before
 
 
 ATTN_CASES = {

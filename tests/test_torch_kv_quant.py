@@ -193,6 +193,74 @@ def test_quantised_cache_write_bitwise(fmt, ring):
                                   bits_of(want.scales))
 
 
+def kv_pair(fmt, n, hd, seed):
+    """k and v rows (n, hd) with the quantiser's edges (midpoint ties, a
+    zero row, absmaxes that round down in bf16), as numpy f32."""
+    cb = tcache.kv_codebook(fmt).numpy()
+    return (hard_rows(n, hd, cb, seed), hard_rows(n, hd, cb, seed + 1)[::-1]
+            .copy())
+
+
+@pytest.mark.parametrize("fmt", FMTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_quant_kv_plain_equals_two_block_quant_calls(fmt, dtype):
+    """The paired entry's plain path writes the bytes of two single
+    ``block_quant`` writes at the same rows, and nothing else."""
+    k, v = (t(a).to(dtype) for a in kv_pair(fmt, 12, 64, seed=21))
+    cb = tcache.kv_codebook(fmt)
+    pack = fmt == "q4"
+    width = 32 if pack else 64
+    rows = torch.tensor([5, 17, 0, 9, 30, 2, 11, 8, 23, 1, 14, 27])
+
+    def caches():
+        return [(torch.zeros(31, 1, width, dtype=torch.uint8),
+                 torch.zeros(31, 1, 1)) for _ in range(2)]
+    got, want = caches(), caches()
+    out = ops.block_quant_kv(k, v, cb, block=64, pack=pack, out_k=got[0],
+                             out_v=got[1], rows=rows)
+    assert out[0] is got[0] and out[1] is got[1]
+    for x, buf in zip((k, v), want):
+        ops.block_quant(x, cb, block=64, pack=pack, out=buf, rows=rows)
+    for (gc, gs), (wc, ws) in zip(got, want):
+        assert torch.equal(gc, wc) and torch.equal(gs, ws)
+    untouched = [r for r in range(31) if r not in rows.tolist()]
+    assert not got[0][0][untouched].any() and not got[1][1][untouched].any()
+
+
+@pytest.mark.parametrize("fmt", FMTS)
+@pytest.mark.parametrize("hd", [64, 256])
+@pytest.mark.parametrize("ring", [False, True])
+def test_write_kv_pair_bitwise_vs_reference(fmt, hd, ring):
+    """``write_kv_pair`` (one ``block_quant_kv`` call) on a quantised k/v
+    pair against the reference's ``quantise_kv`` + cache update (its jnp
+    ``block_quant_ref``), bit for bit: ring rows wrap the 12-slot ring, and
+    the new rows hold midpoint ties, a zero row and round-down absmaxes."""
+    B, T, S, K = 2, 4, 12, 2
+    rng = np.random.default_rng(hd + 2 * ring)
+    bits = jcache.kv_bits(fmt)
+    hdc = hd // 2 if bits == 4 else hd
+    pos = np.array([3, 10 if ring else 8], np.int32)
+    news = [a.reshape(B, T, K, hd) for a in kv_pair(fmt, B * T * K, hd,
+                                                      seed=hd)]
+    caches, want = [], []
+    for new in news:
+        codes = rng.integers(0, 256, (B, S, K, hdc)).astype(np.uint8)
+        scales = rng.random((B, S, K, 1)).astype(np.float32)
+        want.append(jl.update_kv_cache(
+            jl.QuantisedKV(jnp.asarray(codes), jnp.asarray(scales)),
+            jnp.asarray(new), jnp.asarray(pos), ring=ring,
+            codebook=jcache.kv_codebook(fmt)))
+        caches.append(tl.QuantisedKV(t(codes), t(scales)))
+    rows, slots = tl.cache_slots(t(pos), T, S, ring=ring)
+    out = tl.write_kv_pair(*caches, *map(t, news), rows, slots,
+                           tcache.kv_codebook(fmt))
+    assert out[0] is caches[0] and out[1] is caches[1]
+    for got, w in zip(caches, want):
+        np.testing.assert_array_equal(got.codes.numpy(), np.asarray(w.codes))
+        np.testing.assert_array_equal(bits_of(got.scales.numpy()),
+                                      bits_of(w.scales))
+
+
 def test_nibble_hd_unpack_inverts_pack_pairs():
     codes = torch.arange(32, dtype=torch.uint8).reshape(2, 16) % 16
     assert torch.equal(unpack_nibbles_hd(pack_pairs(codes)), codes)
@@ -382,6 +450,11 @@ def test_cpu_calls_count_no_launches():
     before = (bq.launches, daq.launches, dqmt.launches)
     cb = tcache.kv_codebook("q4")
     ops.block_quant(torch.randn(4, 32), cb, block=32)
+    bufs = [(torch.zeros(4, 16, dtype=torch.uint8), torch.zeros(4, 1))
+            for _ in range(2)]
+    ops.block_quant_kv(torch.randn(4, 32), torch.randn(4, 32), cb, block=32,
+                       pack=True, out_k=bufs[0], out_v=bufs[1],
+                       rows=torch.arange(4))
     _, targs, kw, _ = attn_inputs("linear", "q8", torch.float32)
     ops.decode_attention_quant(*targs, kw["window"], ring=kw["ring"],
                                bits=kw["bits"])
@@ -390,8 +463,8 @@ def test_cpu_calls_count_no_launches():
     assert (bq.launches, daq.launches, dqmt.launches) == before
 
 
-@pytest.mark.parametrize("which", ["block_quant", "decode_attention",
-                                   "dequant_matmul_t"])
+@pytest.mark.parametrize("which", ["block_quant", "block_quant_kv",
+                                   "decode_attention", "dequant_matmul_t"])
 def test_cuda_wrappers_raise_when_the_library_cannot_build(which,
                                                            monkeypatch):
     """No fallback: a wrapper whose library cannot build raises, counts
@@ -404,6 +477,8 @@ def test_cuda_wrappers_raise_when_the_library_cannot_build(which,
         if which == "block_quant":
             bq.block_quant_cuda(torch.randn(4, 32), tcache.kv_codebook("q8"),
                                 block=32)
+        elif which == "block_quant_kv":
+            call_kv(kv_wrapper_args())
         elif which == "decode_attention":
             _, targs, kw, _ = attn_inputs("linear", "q8", torch.float32)
             daq.decode_attention_quant_cuda(*targs, kw["window"],
@@ -415,17 +490,61 @@ def test_cuda_wrappers_raise_when_the_library_cannot_build(which,
     assert (bq.launches, daq.launches, dqmt.launches) == before
 
 
+def kv_wrapper_args(n=4, hd=32, fmt="q8", **bad):
+    """Arguments of ``block_quant_kv_cuda`` (positional k, v, codebook,
+    block; then the keywords), with any of them replaced by ``bad``."""
+    pack = fmt == "q4"
+    width = hd // 2 if pack else hd
+    kw = dict(k=torch.randn(n, hd), v=torch.randn(n, hd),
+              codebook=tcache.kv_codebook(fmt), block=hd, pack=pack,
+              out_k=(torch.zeros(2 * n, width, dtype=torch.uint8),
+                     torch.zeros(2 * n, 1)),
+              out_v=(torch.zeros(2 * n, width, dtype=torch.uint8),
+                     torch.zeros(2 * n, 1)),
+              rows=torch.arange(n) * 2)
+    kw.update(bad)
+    args = [kw.pop(name) for name in ("k", "v", "codebook", "block")]
+    return (*args, kw)
+
+
+def call_kv(args):
+    *pos, kw = args
+    return bq.block_quant_kv_cuda(*pos, **kw)
+
+
 def test_cuda_wrappers_refuse_cpu_tensors(monkeypatch):
     monkeypatch.setattr(build, "load_library", lambda name: object())
     with pytest.raises(ValueError, match="CUDA device"):
         bq.block_quant_cuda(torch.randn(4, 32), tcache.kv_codebook("q8"),
                             block=32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        call_kv(kv_wrapper_args())
     _, targs, kw, _ = attn_inputs("linear", "q4", torch.float32)
     with pytest.raises(ValueError, match="CUDA device"):
         daq.decode_attention_quant_cuda(*targs, 0, bits=4)
     with pytest.raises(ValueError, match="CUDA device"):
         dqmt.dequant_matmul_t_cuda(
             *mt_torch(*mt_case(2, 512, 64, 4, 32, 1), 4), block=32, bits=4)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(v=torch.randn(5, 32)), "must match k"),
+    (dict(v=torch.randn(4, 32).to(torch.bfloat16)), "must match k"),
+    (dict(rows=torch.arange(3)), "out needs rows"),
+    (dict(rows=torch.arange(4, dtype=torch.int32)), "out needs rows"),
+    (dict(out_v=(torch.zeros(8, 31, dtype=torch.uint8), torch.zeros(8, 1))),
+     "do not hold rows"),
+    (dict(out_k=(torch.zeros(8, 32, dtype=torch.uint8), torch.zeros(9, 1))),
+     "do not hold rows"),
+    (dict(block=24), "tile by block"),
+])
+def test_block_quant_kv_wrapper_checks_the_pair(monkeypatch, bad, match):
+    """The paired wrapper refuses a v unlike k, rows that do not name one
+    output row per input row, and outputs that do not hold whole rows,
+    before it looks at the device."""
+    monkeypatch.setattr(build, "load_library", lambda name: object())
+    with pytest.raises(ValueError, match=match):
+        call_kv(kv_wrapper_args(**bad))
 
 
 def test_dequant_matmul_t_tiling_choices():

@@ -1,6 +1,6 @@
 """End to end: the port's ServeEngine against the JAX engine, serving the
-same babsmax64:n4-packed weights on paper-100m smoke (B = 1, 4) and small
-(B = 4).
+same babsmax64:n4-packed weights on paper-100m smoke (B = 1, 2, 4, 8) and
+small (B = 4), greedy and, on smoke, sampled.
 
 Each reference engine step is recorded (positions, batch, logits) and the
 identical batches are replayed through the port's ``decode_step``
@@ -53,7 +53,7 @@ def prompts(cfg, B, seed=1):
             for i in range(B)]
 
 
-def run_reference(variant, dtype, B):
+def run_reference(variant, dtype, B, temperature=0.0):
     """JAX engine on the packed weights: tokens per rid, the recorded steps,
     and the byte accounting."""
     jcfg = jconfigs.get_config("paper-100m", variant).replace(dtype=dtype)
@@ -75,7 +75,8 @@ def run_reference(variant, dtype, B):
         return logits, new
     eng._step = recording_step
     for rid, pr in enumerate(prompts(jcfg, B)):
-        eng.submit(JRequest(prompt=pr, max_new_tokens=MAX_NEW, rid=rid))
+        eng.submit(JRequest(prompt=pr, max_new_tokens=MAX_NEW, rid=rid,
+                            temperature=temperature))
     tokens = {g.rid: g.tokens for g in eng.run()}
     return dict(tokens=tokens, steps=steps, weight=eng.weight_bytes(),
                 cache=eng.cache_bytes(), np_params=np_params,
@@ -114,13 +115,15 @@ def valid_rows(rec):
     return [(i, t) for i in range(len(tv)) for t in range(int(tv[i]))]
 
 
-def run_generate(eng, B):
+def run_generate(eng, B, temperature=0.0):
     for rid, pr in enumerate(prompts(eng.cfg, B)):
-        eng.submit(Request(prompt=pr, max_new_tokens=MAX_NEW, rid=rid))
+        eng.submit(Request(prompt=pr, max_new_tokens=MAX_NEW, rid=rid,
+                           temperature=temperature))
     return {g.rid: g.tokens for g in eng.run()}
 
 
-CASES = [("smoke", 1), ("smoke", 4), ("small", 4)]
+CASES = [("smoke", 1), ("smoke", 2), ("smoke", 4), ("smoke", 8),
+         ("small", 4)]
 
 
 @pytest.fixture(scope="module", params=CASES, ids=lambda c: f"{c[0]}-B{c[1]}")
@@ -151,6 +154,19 @@ class TestFloat32:
         _, _, ref, eng = f32_case
         assert eng.weight_bytes() == ref["weight"]
         assert eng.cache_bytes() == ref["cache"]
+
+
+def test_sampled_tokens_equal_the_reference():
+    """Compute dtype f32 at temperature 0.8: both engines draw each token
+    from ``np.random.default_rng((rid, index))`` over the softmax of the
+    logits, so the sampled tokens are the reference's wherever the logits
+    agree (a draw that fell across a CDF boundary moved by a logit
+    difference would show here as a mismatch)."""
+    ref = run_reference("smoke", "float32", 4, temperature=0.8)
+    eng = port_engine("smoke", "float32", 4, ref["np_params"])
+    greedy = run_reference("smoke", "float32", 4)["tokens"]
+    assert ref["tokens"] != greedy          # the draws did sample
+    assert run_generate(eng, 4, temperature=0.8) == ref["tokens"]
 
 
 @pytest.mark.parametrize("variant,B", [("smoke", 4), ("small", 4)])
