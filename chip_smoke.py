@@ -8,9 +8,10 @@ Phases, each printed as JSON lines:
    every CUDA kernel from ``src/repro_torch`` sources (one nvcc per source,
    in parallel), with registers and spills per library and per instance of
    the ``dequant_matmul_t`` tensor-core kernel, and the count of
-   tensor-core (HMMA) instructions in the ``dequant_matmul`` and
-   ``dequant_matmul_t`` libraries (``cuobjdump -sass``), which must not be
-   0.
+   tensor-core (HMMA) instructions in the ``dequant_matmul``,
+   ``dequant_matmul_t`` and ``decode_attention`` libraries (``cuobjdump
+   -sass``), which must not be 0, and registers, spills and shared memory of
+   each ``decode_attention`` instance.
 2. kernel: each kernel against its plain torch version on the card, with the
    kernel's, the plain version's and one library call's times beside the
    least time the card could take:
@@ -25,7 +26,8 @@ Phases, each printed as JSON lines:
    (``block_quant_kv``, the served cache write; packed, scattered, and
    from unaligned rows), bitwise; ``decode_attention_quant`` at gemma3-1b's
    shapes (ring S = 520 and linear S = 1032, T = 1 and 8, q8 and q4, a
-   wrapped ring). Besides the one-call-per-event-pair time of each case, a
+   wrapped ring), each called twice with bitwise-equal results, with the
+   geometry it ran. Besides the one-call-per-event-pair time of each case, a
    launch-bound reading (``launch_us``: 200 back-to-back calls between one
    event pair) times ``decode_attention_quant`` and, at gemma3-1b's KV
    write shapes, the old pair of single-tensor ``block_quant`` calls and
@@ -47,8 +49,10 @@ Phases, each printed as JSON lines:
 6. the kernels summary line, then ``{"ok": true, "device": ...}``.
 
 Every count of kernel launches is set to 0 just before a serve run and read
-just after it. Any failed check raises and the script exits non-zero without
-the last line. It exits non-zero at once when no CUDA device is present.
+just after it. Each profile phase also holds every ``decode_attention_quant``
+call of its run to one device kernel. Any failed check raises and the
+script exits non-zero without the last line. It exits non-zero at once
+when no CUDA device is present.
 """
 from __future__ import annotations
 
@@ -116,6 +120,8 @@ LAUNCHES_PER_STEP = {
     "gemma3-1b": {"dequant_matmul": 182, "dequant_matmul_t": 1,
                   "block_quant": 26, "decode_attention_quant": 26},
 }
+# the device kernels of decode_attention.cu (profile phase: one a call)
+ATTN_DEVICE_KERNELS = ("attn_rows_kernel", "attn_mma_kernel")
 LAUNCH_RUN = 200                  # calls per launch-bound reading
 UNEMBED_T = (262144, 1152)        # gemma3-1b's tied table (V, D)
 KV_BYTES = {"q8": 32_381_440, "q4": 16_439_808}   # gemma3-1b, 4 x 1024
@@ -409,13 +415,12 @@ ATTN_CASES = [
 ]
 
 
-def attention_case(mods, dev, gen, flush, T, S, ring, window, starts, fmt):
-    """gemma3-1b's attention read: B=4, H=4, K=1, hd=256, codes written by
-    the port's own quantise_kv. Library: scaled_dot_product_attention on
-    K/V dequantised to bf16 beforehand, under the same boolean mask."""
-    from repro_torch.kernels.decode_attention.ref import (
-        decode_attention_quant_ref, dequant_kv_ref)
-    from repro_torch.models.layers import attention_mask, quantise_kv
+def attention_inputs(dev, gen, T, S, starts, fmt):
+    """gemma3-1b's attention read (B=4, H=4, K=1, hd=256): bf16 q, K/V
+    codes written by the port's own quantise_kv, positions from ``starts``
+    (the first query position of each row). Returns the kernel's
+    positional arguments and the code bits."""
+    from repro_torch.models.layers import quantise_kv
     from repro_torch.serve.cache import kv_bits, kv_codebook
     B, H, K, hd = 4, 4, 1, 256
     bits = kv_bits(fmt)
@@ -427,13 +432,42 @@ def attention_case(mods, dev, gen, flush, T, S, ring, window, starts, fmt):
     q = torch.randn(B, T, H, hd, generator=gen, device=dev).to(torch.bfloat16)
     qp = (torch.tensor(starts, dtype=torch.int32, device=dev)[:, None]
           + torch.arange(T, dtype=torch.int32, device=dev))
-    kern = mods["decode_attention_quant"].decode_attention_quant_cuda
-    args = (q, kc, ks, vc, vs, cb, qp)
+    return (q, kc, ks, vc, vs, cb, qp), bits
+
+
+def attn_instance(geo, bits, hd):
+    """The key of the decode_attention.cu instance a geometry runs (bf16
+    q), as ``ptxas_attention_instances`` names them."""
+    if geo.path == 1:
+        return f"mma_bits{bits}_hd{hd}"
+    return f"rows_bits{bits}_bf16_rt{geo.row_tile}_e{8 if hd > 128 else 4}"
+
+
+def attention_case(mods, dev, gen, flush, T, S, ring, window, starts, fmt,
+                   attn_ptxas):
+    """gemma3-1b's attention read (``attention_inputs``), called twice with
+    bitwise-equal results, with the geometry it ran and its instance's
+    ptxas figures. Library: scaled_dot_product_attention on K/V dequantised
+    to bf16 beforehand, under the same boolean mask."""
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_quant_ref, dequant_kv_ref)
+    from repro_torch.models.layers import attention_mask
+    args, bits = attention_inputs(dev, gen, T, S, starts, fmt)
+    q, kc, ks, vc, vs, cb, qp = args
+    B, _, H, hd = q.shape
+    K = kc.shape[2]
+    mod = mods["decode_attention_quant"]
+    kern = mod.decode_attention_quant_cuda
     out = kern(*args, window, ring=ring, bits=bits)
+    again = kern(*args, window, ring=ring, bits=bits)
     want = decode_attention_quant_ref(*args, window=window, ring=ring,
                                       bits=bits)
     torch.cuda.synchronize()
     check(bool(torch.isfinite(out).all()), "decode_attention: non-finite")
+    check(torch.equal(out, again), f"decode_attention T={T} S={S} {fmt}: "
+          "two calls on the same inputs differ")
+    geo = mod._geometry(B, T, H, K, S, hd, bits, True,
+                        mod.tensor_cores_fit(q, kc, vc), dev.index or 0)
     scale = float(want.float().abs().max())
     torch.testing.assert_close(out.float(), want.float(), rtol=2e-2,
                                atol=2e-2 * scale)
@@ -454,8 +488,12 @@ def attention_case(mods, dev, gen, flush, T, S, ring, window, starts, fmt):
     flops = 4 * H * hd * pairs
     return dict(
         T=T, S=S, ring=ring, window=window, fmt=fmt, starts=starts,
-        visible_slots=slots, bytes=nbytes, flops=flops, bound_ms=bound_ms(nbytes, flops),
-        bound_by=bound_by(nbytes, flops),
+        visible_slots=slots, bytes=nbytes, flops=flops,
+        bound_ms=bound_ms(nbytes, flops), bound_by=bound_by(nbytes, flops),
+        geometry=geo._asdict(), bitwise_repeat=True,
+        instance=attn_instance(geo, bits, hd),
+        **attn_ptxas[attn_instance(geo, bits, hd)],
+        **mod.instance_info(geo, bits, True, hd),
         kernel_ms=time_ms(lambda: kern(*args, window, ring=ring, bits=bits),
                           flush),
         launch_us=launch_us(lambda: kern(*args, window, ring=ring, bits=bits),
@@ -467,7 +505,7 @@ def attention_case(mods, dev, gen, flush, T, S, ring, window, starts, fmt):
         max_abs_err=err, max_abs_y=scale)
 
 
-def kernel_phase(mods, dev, tc_ptxas):
+def kernel_phase(mods, dev, tc_ptxas, attn_ptxas):
     from repro_torch.core.registry import parse_format
     gen = torch.Generator(device=dev).manual_seed(0)
     cb4 = parse_format(SPEC).element.torch_codepoints(dev)
@@ -505,7 +543,8 @@ def kernel_phase(mods, dev, tc_ptxas):
                     mods, dev, gen, flush, n, hd, fmt))
         for T, S, ring, window, starts in ATTN_CASES:
             record("decode_attention_quant", attention_case(
-                mods, dev, gen, flush, T, S, ring, window, starts, fmt))
+                mods, dev, gen, flush, T, S, ring, window, starts, fmt,
+                attn_ptxas))
     del flush
     torch.cuda.empty_cache()
     return rows
@@ -628,12 +667,16 @@ def check_run(arch, done, stats, requests):
               "per step")
 
 
-def profile_steps(eng):
+def profile_steps(eng, mods):
     """torch.profiler over a short extra run (4 requests x 4 tokens): the
     device's busy time against the steps' wall time, the kernels that fill
-    it and the host ops that cost the most."""
+    it and the host ops that cost the most. Every ``decode_attention_quant``
+    call of the run must have made exactly one device kernel of its
+    library (``ATTN_DEVICE_KERNELS``)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve.engine import Request
+    attn = mods["decode_attention_quant"]
+    calls0 = attn.launches
     rng = np.random.default_rng(1)
     for rid in range(eng.B):
         eng.submit(Request(prompt=rng.integers(0, eng.cfg.vocab, 8).tolist(),
@@ -660,8 +703,14 @@ def profile_steps(eng):
     launch_calls = sum(e.count for e in events
                        if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                     "cudaLaunchKernelExC"))
+    attn_calls = attn.launches - calls0
+    attn_kernels = sum(e.count for e in kernels
+                       if any(n in e.key for n in ATTN_DEVICE_KERNELS))
+    check(attn_kernels == attn_calls, f"decode_attention_quant: "
+          f"{attn_calls} calls made {attn_kernels} device kernels")
     return dict(
         steps=steps, profiled_wall_ms_per_step=wall_ms / steps,
+        attention_calls=attn_calls, attention_device_kernels=attn_kernels,
         device_busy_ms_per_step=busy_ms / steps,
         device_busy_share_profiled=busy_ms / wall_ms,
         kernel_launches_per_step=launch_calls / steps,
@@ -825,7 +874,7 @@ def serve_phase(arch, dev, mods, compare_steps=None):
     out = dict(phase="serve", arch=arch, setup_s=setup_s,
                weight_bytes=wb, cache_bytes=eng.cache_bytes()["total"],
                peak_mem_bytes=torch.cuda.max_memory_allocated(dev), **stats)
-    emit(phase="profile", arch=arch, **profile_steps(eng))
+    emit(phase="profile", arch=arch, **profile_steps(eng, mods))
     if compare_steps is not None:
         records = records[:compare_steps]
         check(records[0]["T"] > 1 and records[-1]["T"] == 1,
@@ -928,7 +977,7 @@ def gemma3_phase(dev, mods):
                    **stats)
         if fmt == "q8":
             emit(phase="profile", arch=arch, kv_format=fmt,
-                 **profile_steps(eng))
+                 **profile_steps(eng, mods))
             long_done, long_stats, ring_recs = serve(
                 eng, mods, long_req, keep_logits=True, warm=False)
             check_run(arch, long_done, long_stats, long_req)
@@ -1007,11 +1056,11 @@ def ptxas_summary(build_dir):
 
 
 def sass_check(build_dir):
-    """Tensor-core instructions in the built dequant_matmul and
-    dequant_matmul_t libraries (``cuobjdump -sass``, CUDA toolkit): HMMA
-    must be in each."""
+    """Tensor-core instructions in the built dequant_matmul,
+    dequant_matmul_t and decode_attention libraries (``cuobjdump -sass``,
+    CUDA toolkit): HMMA must be in each."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for name in ("dequant_matmul", "dequant_matmul_t"):
+    for name in ("dequant_matmul", "dequant_matmul_t", "decode_attention"):
         lib = build_dir / f"lib{name}.so"
         r = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                            text=True, timeout=300)
@@ -1022,27 +1071,54 @@ def sass_check(build_dir):
         check(hmma, f"the {name} library has no HMMA instruction")
 
 
+def ptxas_entries(report):
+    """(mangled entry name, registers, spill stores, stack frame, static
+    shared bytes) of each kernel in an nvcc -Xptxas -v report."""
+    parts = re.split(r"Compiling entry function '([^']+)'", report)
+    for name, body in zip(parts[1::2], parts[2::2]):
+        def num(pattern):
+            f = re.search(pattern, body)
+            return int(f.group(1)) if f else None
+        yield name, dict(registers=num(r"Used (\d+) registers"),
+                         spill_store_bytes=num(r"(\d+) bytes spill stores"),
+                         stack_frame_bytes=num(r"(\d+) bytes stack frame"),
+                         static_smem_bytes=num(r"(\d+) bytes smem") or 0)
+
+
+def ptxas_attention_instances(build_dir):
+    """ptxas figures of each instance of decode_attention.cu's kernels:
+    attn_rows_kernel<bits, q type, row tile, elements a lane>, keyed
+    ``rows_bits8_bf16_rt4_e8`` and the like, and attn_mma_kernel<bits, hd /
+    64>, keyed ``mma_bits8_hd256``. The dynamic shared memory of a
+    launch is ``instance_info``'s."""
+    report = (build_dir / "ptxas_decode_attention.txt").read_text()
+    out = {}
+    for name, fig in ptxas_entries(report):
+        m = re.search(r"attn_rows_kernelILi(\d+)E(f|13__nv_bfloat16)Li(\d+)"
+                      r"ELi(\d+)E", name)
+        if m:
+            dt = "f32" if m.group(2) == "f" else "bf16"
+            out[f"rows_bits{m.group(1)}_{dt}_rt{m.group(3)}_e{m.group(4)}"] \
+                = fig
+        m = re.search(r"attn_mma_kernelILi(\d+)ELi(\d+)E", name)
+        if m:
+            out[f"mma_bits{m.group(1)}_hd{64 * int(m.group(2))}"] = fig
+    check(out, "no decode_attention instance in its ptxas report")
+    return out
+
+
 def ptxas_tc_instances(build_dir):
     """Registers, spill stores and stack of each instance of the
     dequant_matmul_t tensor-core kernel (tc::kernel<bits, n8-tiles,
     block % 16 == 0>), from nvcc's -Xptxas -v report."""
     report = (build_dir / "ptxas_dequant_matmul_t.txt").read_text()
-    parts = re.split(r"Compiling entry function '([^']+)'", report)
     out = {}
-    for name, body in zip(parts[1::2], parts[2::2]):
+    for name, fig in ptxas_entries(report):
         m = re.search(r"tc6kernelILi(\d+)ELi(\d+)ELb([01])E", name)
-        if not m:
-            continue
-
-        def num(pattern):
-            f = re.search(pattern, body)
-            return int(f.group(1)) if f else None
-        bits, nt, blk16 = m.groups()
-        key = f"bits{bits}_nt{nt}" + ("" if blk16 == "1" else
-                                      "_block_not_16x")
-        out[key] = dict(registers=num(r"Used (\d+) registers"),
-                        spill_store_bytes=num(r"(\d+) bytes spill stores"),
-                        stack_frame_bytes=num(r"(\d+) bytes stack frame"))
+        if m:
+            bits, nt, blk16 = m.groups()
+            out[f"bits{bits}_nt{nt}" +
+                ("" if blk16 == "1" else "_block_not_16x")] = fig
     check(out, "no tc::kernel instance in the dequant_matmul_t ptxas report")
     return out
 
@@ -1109,6 +1185,19 @@ def summary(rows, runs):
          floor_us=lu["floor"]["device_us"],
          paired_host_ms=lu["paired"]["host_us"] * n * 1e-3,
          single_pair_host_ms=lu["single_pair"]["host_us"] * n * 1e-3)
+    # decode_attention_quant per gemma3-1b decode step (T=1, q8: 22 ring
+    # layers at S=520, 4 global at S=1032), by both timings
+    at = [r for r in rows["decode_attention_quant"]
+          if r["T"] == 1 and r["fmt"] == "q8"]
+    n = {True: 22, False: 4}
+    emit(phase="summary", kernel="decode_attention_quant",
+         measured_over="one gemma3-1b decode step (B=4, q8 cache, 26 "
+         "layers)",
+         event_pair_ms=sum(r["kernel_ms"] * n[r["ring"]] for r in at),
+         launch_bound_ms=sum(r["launch_us"]["device_us"] * n[r["ring"]]
+                             for r in at) * 1e-3,
+         library_ms=sum(r["library_ms"] * n[r["ring"]] for r in at),
+         bound_ms=sum(r["bound_ms"] * n[r["ring"]] for r in at))
     line = []
     for name, k in KERNELS.items():
         st = steps[name]
@@ -1147,9 +1236,11 @@ def main() -> int:
          device=torch.cuda.get_device_name(0))
     tc_ptxas = ptxas_tc_instances(build.build_dir())
     emit(phase="ptxas", library="dequant_matmul_t", tc_instances=tc_ptxas)
+    attn_ptxas = ptxas_attention_instances(build.build_dir())
+    emit(phase="ptxas", library="decode_attention", instances=attn_ptxas)
     sass_check(build.build_dir())
 
-    rows = kernel_phase(mods, dev, tc_ptxas)
+    rows = kernel_phase(mods, dev, tc_ptxas, attn_ptxas)
     emit(phase="timing", kernel_phase_end_s=time.monotonic() - t_start)
     paper = serve_phase("paper-100m", dev, mods)
     deepseek = serve_phase("deepseek-7b", dev, mods, compare_steps=2)

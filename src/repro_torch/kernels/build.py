@@ -38,7 +38,8 @@ SIGNATURES = {
     "block_quant": {"block_quant_launch": [_P] * 8 + [_I] * 8 + [_P],
                     "block_quant_floor_launch": [_P]},
     "decode_attention": {
-        "decode_attention_quant_launch": [_P] * 10 + [_I] * 12 + [_F, _P]},
+        "decode_attention_quant_launch": [_P] * 8 + [_I] * 15 + [_F, _P],
+        "decode_attention_instance_info": [_I] * 7 + [_P]},
 }
 
 

@@ -238,6 +238,122 @@ def test_decode_attention_kernel(cuda_device, fmt, name, dtype):
                                **attn_tol(want, dtype))
 
 
+# (T, S, hd, K) over T in {1, 8, 9} (9 tokens of 4 heads: 36 rows, more
+# than one tile) and S in {20, 24, 520, 1031, 1032}, hd and K in turn
+SHAPE_CASES = [(T, S, (64, 128, 256)[i % 3], (1, 2)[i // 3 % 2])
+               for i, (T, S) in enumerate(
+                   (T, S) for T in (1, 8, 9)
+                   for S in (20, 24, 520, 1031, 1032))]
+
+
+def shape_inputs(T, S, hd, K, ring, fmt, dtype, starts=None, window=None):
+    """B = 3, H = 4: q, K/V written by quantise_kv, and positions that wrap
+    a ring (or reach S - T of a linear cache), sit at the start, and in the
+    middle. Linear caches take a window on every other shape."""
+    B, H = 3, 4
+    rng = np.random.default_rng(T * 7919 + S * 31 + hd + K + 2 * ring)
+    cb = kv_codebook(fmt)
+    caches = []
+    for _ in range(2):
+        dense = torch.from_numpy(
+            rng.standard_normal((B, S, K, hd)).astype(np.float32))
+        caches += list(quantise_kv(dense, cb, kv_bits(fmt)))
+    q = torch.from_numpy((rng.standard_normal((B, T, H, hd)) * 2).astype(
+        np.float32)).to(dtype)
+    if window is None:
+        window = max(1, S - T) if ring else (S // 3 if S % 2 else 0)
+    if starts is None:
+        starts = [S + 37, 3, 2 * S - 5] if ring else [S - T, 0, S // 2]
+    qp = torch.tensor(starts, dtype=torch.int32)[:, None] + torch.arange(
+        T, dtype=torch.int32)
+    return (q, *caches, cb, qp), dict(window=window, ring=ring,
+                                      bits=kv_bits(fmt))
+
+
+def check_attention(args, kw, dtype, device):
+    """One counted launch, held to the plain version at attn_tol; a second
+    call is bitwise equal. Returns the card's output."""
+    before = daq.launches
+    got = ops.decode_attention_quant(*[a.to(device) for a in args],
+                                     kw["window"], ring=kw["ring"],
+                                     bits=kw["bits"])
+    torch.cuda.synchronize()
+    assert daq.launches == before + 1
+    want = decode_attention_quant_ref(*args, **kw).float().numpy()
+    assert got.dtype == dtype and tuple(got.shape) == want.shape
+    assert np.isfinite(got.float().cpu().numpy()).all()
+    np.testing.assert_allclose(got.float().cpu().numpy(), want,
+                               **attn_tol(want, dtype))
+    again = ops.decode_attention_quant(*[a.to(device) for a in args],
+                                       kw["window"], ring=kw["ring"],
+                                       bits=kw["bits"])
+    assert torch.equal(got, again)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S,hd,K", SHAPE_CASES)
+@pytest.mark.parametrize("ring", [False, True])
+@pytest.mark.parametrize("fmt", FMTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_shapes(cuda_device, T, S, hd, K, ring, fmt,
+                                        dtype):
+    args, kw = shape_inputs(T, S, hd, K, ring, fmt, dtype)
+    check_attention(args, kw, dtype, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,hd", [(1, 256), (8, 256), (8, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_row_that_sees_no_slot(cuda_device, T, hd,
+                                                       dtype):
+    """Window 4 past the end of a 24-slot linear cache: the first batch
+    row sees no slot, so its answer is the mean of V (every score -1e30),
+    as in the reference; the other rows see slots as usual."""
+    args, kw = shape_inputs(T, 24, hd, 1, False, "q8", dtype,
+                            starts=[40, 10, 3], window=4)
+    got = check_attention(args, kw, dtype, cuda_device)
+    vc, vs, cb = args[3], args[4], args[5]
+    mean_v = (cb[vc.long()] * vs)[0, :, 0].mean(0)
+    np.testing.assert_allclose(got[0].float().cpu().numpy(),
+                               mean_v.expand(T, 4, hd).numpy(),
+                               **attn_tol(mean_v.numpy(), dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,S", [(1, 520), (1, 1032), (8, 520), (8, 1032)])
+@pytest.mark.parametrize("fmt", FMTS)
+def test_decode_attention_kernel_split_reruns_bitwise(cuda_device, T, S,
+                                                      fmt):
+    """gemma3-1b's shapes split S across the blocks of a cluster: every
+    call of a run of them is bitwise equal to the first."""
+    args, kw = shape_inputs(T, S, 256, 1, S == 520, fmt, torch.bfloat16)
+    args = [a.to(cuda_device) for a in args]
+    B, _, H, _ = args[0].shape
+    assert daq._geometry(B, T, H, 1, S, 256, kw["bits"], True,
+                         daq.tensor_cores_fit(args[0], args[1], args[3]),
+                         args[0].device.index).splits > 1
+    outs = [ops.decode_attention_quant(*args, kw["window"], ring=kw["ring"],
+                                       bits=kw["bits"]) for _ in range(5)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,row_tile,hd,warps,splits", [
+    (0, 4, 256, 8, 16), (0, 8, 256, 8, 8), (1, 16, 256, 8, 16),
+    (1, 16, 64, 8, 9)])
+def test_decode_attention_clusters_fit_the_card(cuda_device, path, row_tile,
+                                                hd, warps, splits):
+    """The clusters the chooser asks for can be scheduled on this card,
+    within its shared memory."""
+    geo = daq.Geometry(path, row_tile, 1, warps, splits)
+    for bits in (4, 8):
+        info = daq.instance_info(geo, bits, True, hd)
+        assert info["clusters"] >= 1
+        assert 0 < info["smem_bytes"] <= 227 * 1024
+
+
 def mt_args(M, V, D, bits, block, seed, dtype, device):
     rng = np.random.default_rng(seed)
     n_codes = 16 if bits == 4 else 256

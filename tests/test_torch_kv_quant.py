@@ -576,10 +576,28 @@ def test_dequant_matmul_t_tensor_core_choices():
 
 
 def test_decode_attention_split_choices():
-    # gemma3-1b (B = 4, K = 1): one 32-slot chunk per block at both cache
-    # lengths, T = 1 (4 query rows) and T = 8 (32 rows, one row tile)
-    assert daq.choose_splits(4, 1, 4, 520, 132) == 17
-    assert daq.choose_splits(4, 1, 32, 1032, 132) == 33
-    assert daq.choose_splits(4, 1, 33, 1032, 132) == 33   # two row tiles
-    assert daq.choose_splits(64, 8, 4, 4096, 132) == 1    # card already full
-    assert daq.choose_splits(2, 2, 4, 24, 132) == 1       # one chunk
+    # gemma3-1b (B = 4, H = 4, K = 1): T = 1 is one 4-row tile, 8-slot
+    # batches, 8 warps a block, S split into clusters of at most 16 blocks
+    # (S = 1032: one warp takes a second batch)
+    G = daq.Geometry
+    assert daq.geometry(4, 1, 4, 1, 520, 132) == G(0, 4, 1, 8, 9)
+    assert daq.geometry(4, 1, 4, 1, 1032, 132) == G(0, 4, 1, 8, 16)
+    assert daq.geometry(4, 1, 4, 1, 1032, 132, max_cluster=8) == \
+        G(0, 4, 1, 8, 8)
+    # f32 q (no tensor cores): four 8-row tiles of 4-slot batches, splits
+    # capped at one block per SM
+    assert daq.geometry(4, 8, 4, 1, 520, 132) == G(0, 8, 4, 8, 8)
+    assert daq.geometry(64, 1, 32, 8, 4096, 132) == G(0, 4, 1, 8, 1)
+    assert daq.geometry(2, 1, 4, 2, 24, 132) == G(0, 4, 1, 3, 1)
+    # bf16 prefill chunks on tensor cores: 16-row tiles, the 64-slot chunks
+    # spread evenly over at most 16 splits (T = 8: two tiles a row)
+    tc = dict(hd=256, tensor_cores=True)
+    assert daq.geometry(4, 8, 4, 1, 520, 132, **tc) == G(1, 16, 2, 8, 9)
+    assert daq.geometry(4, 8, 4, 1, 1032, 132, **tc) == G(1, 16, 2, 8, 9)
+    assert daq.geometry(4, 9, 4, 1, 1032, 132, **tc) == G(1, 16, 3, 8, 9)
+    assert daq.geometry(64, 8, 4, 1, 1032, 132, **tc) == G(1, 16, 2, 8, 1)
+    # decode rows, or an hd without a tensor-core instance, stay on CUDA
+    # cores
+    assert daq.geometry(4, 1, 4, 1, 520, 132, **tc).path == 0
+    assert daq.geometry(4, 8, 4, 1, 520, 132, hd=96,
+                        tensor_cores=True).path == 0
