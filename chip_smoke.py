@@ -46,7 +46,21 @@ Phases, each printed as JSON lines:
    requests with a q4 cache, whose prefill step and first three decode
    steps are held to the CPU plain path on the same q4 cache: the logits,
    and the codes and scales of each step's new k and v.
-6. the kernels summary line, then ``{"ok": true, "device": ...}``.
+6. allocation (the paper's measurement path) at gemma3-1b full, seeded
+   random f32 weights, tokens from numpy: the diagonal Fisher by autograd
+   on the card over 2 batches of B=2, T=1024 (remat full), the Eq. 5
+   allocation at 4.0 bits (2 to 8) and its babsmax128 plan beside the flat
+   babsmax128:t4 one, both plans' top-k KL (k=128) on 2 held-out batches;
+   a packed babsmax64:n4 ``apply`` at M = B·T = 2048 (182 ``dequant_matmul``
+   and 1 ``dequant_matmul_t`` launches, counted by the wrappers and by
+   torch.profiler) held position by position to the dense ``apply`` over
+   the dequantised checkpoint, its KL within 5% of that one's, and one
+   T=512 sequence held to the CPU plain path; the card's per-tensor Fisher
+   within 5% of the CPU's on one T=256 sequence with the same labels;
+   ``launch.serve --kv-format auto`` under half the all-f32 cache bytes,
+   serving 4 requests on the formats it chose; both matmul kernels timed
+   at M = 2048 beside torch.matmul and the bound.
+7. the kernels summary line, then ``{"ok": true, "device": ...}``.
 
 Every count of kernel launches is set to 0 just before a serve run and read
 just after it. Each profile phase also holds every ``decode_attention_quant``
@@ -124,6 +138,7 @@ LAUNCHES_PER_STEP = {
 ATTN_DEVICE_KERNELS = ("attn_rows_kernel", "attn_mma_kernel")
 LAUNCH_RUN = 200                  # calls per launch-bound reading
 UNEMBED_T = (262144, 1152)        # gemma3-1b's tied table (V, D)
+TF_M = 2048                       # teacher-forcing rows: B=2 x T=1024
 KV_BYTES = {"q8": 32_381_440, "q4": 16_439_808}   # gemma3-1b, 4 x 1024
 WEIGHT_BYTES = {
     "paper-100m": dict(total=66_924_096, codes=62_914_560, scales=3_932_160,
@@ -720,23 +735,26 @@ def profile_steps(eng, mods):
                       for e in host])
 
 
-def high_margin(row):
-    top2 = np.sort(row)[-2:]
-    return top2[1] - top2[0] > 5e-2 * np.abs(row).max()
-
-
 def hold_logits(got, want, what):
-    """The logits rule for one position: max error within 5e-2·max|want|,
-    and the same argmax where want's top-2 margin is above that. Returns
-    (error ÷ max|want|, whether the margin was high)."""
-    scale = float(np.abs(want).max())
-    err = float(np.abs(got - want).max())
-    check(err <= 5e-2 * scale, f"{what}: logits off by {err} > "
-          f"{5e-2 * scale}")
-    margin = bool(high_margin(want))
-    check(not margin or int(np.argmax(got)) == int(np.argmax(want)),
+    """The logits rule, at every position of (..., V) logits (numpy or
+    torch, compared in torch on ``got``'s device): max error within
+    5e-2·max|want| of the position, and the same argmax where want's top-2
+    margin is above that. Returns (worst error ÷ max|want|, the number of
+    positions whose margin was high)."""
+    got = torch.as_tensor(got).float().reshape(-1, got.shape[-1])
+    want = torch.as_tensor(want).float().reshape(-1, want.shape[-1]).to(
+        got.device)
+    scale = want.abs().amax(-1)
+    err = (got - want).abs().amax(-1)
+    rel = float((err / scale).max())
+    check(bool((err <= 5e-2 * scale).all()), f"{what}: logits of "
+          f"{int((err > 5e-2 * scale).sum())} position(s) off by more than "
+          f"5e-2 of max|logit| (worst {rel})")
+    top2 = torch.topk(want, 2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1] > 5e-2 * scale
+    check(bool(((got.argmax(-1) == want.argmax(-1)) | ~margin).all()),
           f"{what}: argmax differs at a high margin")
-    return err / scale, margin
+    return rel, int(margin.sum())
 
 
 def kv_witness(stats):
@@ -1030,6 +1048,289 @@ def gemma3_phase(dev, mods):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the paper's measurement and allocation path (teacher forcing)
+
+
+def count_matmul_kernels(fn):
+    """Run ``fn`` under torch.profiler; the device kernels of the
+    dequant_matmul (``mma::kernel``) and dequant_matmul_t (``tc::kernel``)
+    libraries that it ran."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    # demangled or mangled names of the tensor-core kernels
+    names = {"dequant_matmul": ("mma::kernel<", "3mma6kernel"),
+             "dequant_matmul_t": ("tc::kernel<", "2tc6kernel")}
+    return out, {name: sum(e.count for e in events
+                           if any(k in e.key for k in keys))
+                 for name, keys in names.items()}
+
+
+def teacher_forcing_times(mods, dev, tc_ptxas):
+    """Both matmul kernels at the teacher-forcing M = B·T = 2048 (B=2,
+    T=1024), at every gemma3-1b projection shape and the tied unembed:
+    kernel, plain and torch.matmul times beside the bound, reruns bitwise.
+    Then the sums over one forward (launches per forward x per-call ms)."""
+    from repro_torch.core.registry import parse_format
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cb4 = parse_format(SPEC).element.torch_codepoints(dev)
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    rows = {"dequant_matmul": [], "dequant_matmul_t": []}
+    for (K, N), per_fwd, names in PROJECTIONS["gemma3-1b"]:
+        r = matmul_case(mods, dev, gen, cb4, flush, K, N, TF_M, 4)
+        r.update(kernel="dequant_matmul", model="gemma3-1b", weights=names,
+                 launches_per_forward=per_fwd, regime="teacher forcing",
+                 bound_by=bound_by(r["bytes"], r["flops"]))
+        emit(phase="kernel", **r)
+        rows["dequant_matmul"].append(r)
+    V, D = UNEMBED_T
+    r = matmul_t_case(mods, dev, gen, cb4, flush, V, D, TF_M, 4, tc_ptxas)
+    r.update(kernel="dequant_matmul_t", model="gemma3-1b",
+             weights="tied unembed", launches_per_forward=1,
+             regime="teacher forcing",
+             bound_by=bound_by(r["bytes"], r["flops"]))
+    emit(phase="kernel", **r)
+    rows["dequant_matmul_t"].append(r)
+    del flush
+    torch.cuda.empty_cache()
+    for name, rs in rows.items():
+        emit(phase="summary", kernel=name, measured_over="one gemma3-1b "
+             f"teacher-forcing forward (B=2, T=1024, M={TF_M})",
+             launches=sum(r["launches_per_forward"] for r in rs),
+             **per_step(rs, lambda r: True,
+                        lambda r: r["launches_per_forward"]))
+    return rows
+
+
+def allocation_phase(dev, mods, tc_ptxas):
+    """gemma3-1b full, seeded random f32 weights, remat full, tokens from
+    numpy: the diagonal Fisher on the card (2 batches of B=2, T=1024), the
+    Eq. 5 allocation at 4.0 bits and its plan beside the flat 4-bit one,
+    their top-k KLs on 2 held-out batches, a packed babsmax64:n4 ``apply``
+    (182 + 1 matmul launches, held to the dense ``apply`` over the
+    dequantised checkpoint, and one T=512 sequence to the CPU plain path),
+    the card's Fisher against the CPU's on one T=256 sequence with the same
+    labels, ``--kv-format auto`` serving, and the matmul kernels' times at
+    M = 2048. Returns the launch counts of its runs."""
+    from repro_torch import configs
+    from repro_torch.core import (build_allocated_plan, build_plan, fisher,
+                                  metrics)
+    from repro_torch.core.allocation import allocate_bits, average_bits
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import params_to
+    t_phase = time.monotonic()
+    cfg = configs.get_config("gemma3-1b", "full")
+    check(cfg.remat == "full", "the Fisher runs rematerialised layers")
+    params = transformer.init(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(3)
+
+    def batch(b, t):
+        return {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, (b, t)).astype(np.int32)).to(dev)}
+
+    def apply(p, b, c=cfg):
+        return transformer.apply(p, b, c)
+    calib = [batch(2, 1024) for _ in range(2)]
+    held = [batch(2, 1024) for _ in range(2)]
+
+    # 1. Fisher and the Eq. 5 allocation; the batches' backward passes are
+    # timed apart from the accumulator's f64 fold on the host
+    sq_grads, sq_s = fisher._sq_grads, []
+
+    def timed_sq_grads(*args):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        out = sq_grads(*args)
+        torch.cuda.synchronize()
+        sq_s.append(time.monotonic() - t)
+        return out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fisher._sq_grads = timed_sq_grads
+    t0 = time.monotonic()
+    try:
+        fish = fisher.estimate_diag_fisher(
+            apply, params, calib, torch.Generator(device=dev).manual_seed(0))
+    finally:
+        fisher._sq_grads = sq_grads
+    torch.cuda.synchronize()
+    fisher_s = time.monotonic() - t0
+    fisher_peak = torch.cuda.max_memory_allocated(dev)
+    stats = fisher.per_tensor_stats(params, fish)
+    del fish
+    alloc = allocate_bits(stats, target_bits=4.0, b_min=2, b_max=8)
+    avg = average_bits(alloc, stats)
+    check(abs(avg - 4.0) <= 1e-3, f"allocation averages {avg} bits")
+    plans = {"flat": build_plan(params, "babsmax128:t4"),
+             "allocated": build_allocated_plan(params, alloc, "babsmax128")}
+    quantised = {k: b for k, b in alloc.items()
+                 if plans["allocated"].formats.get(k) is not None}
+    want = {k for k, f in plans["flat"].formats.items() if f is not None}
+    check(set(quantised) == want and {"['embed']", "['layers']['wq']",
+                                      "['layers']['w_down']"} <= want,
+          f"allocated plan quantises {sorted(quantised)}, the flat plan "
+          f"{sorted(want)}")
+    emit(phase="allocation", step="fisher", sequences=4, tokens_per_seq=1024,
+         fisher_s=fisher_s, s_per_sequence=fisher_s / 4,
+         backward_s_per_batch=sq_s, backward_s_per_sequence=sum(sq_s) / 4,
+         host_fold_s=fisher_s - sum(sq_s),
+         peak_mem_bytes=fisher_peak, average_bits=avg,
+         min_bits=min(quantised.values()), max_bits=max(quantised.values()),
+         bits=alloc, stats=stats)
+
+    # 2. top-k KL of the flat and the allocated plan on held-out batches
+    t0 = time.monotonic()
+    with torch.no_grad():
+        dense = [apply(params, b) for b in held]
+        kl = {}
+        for name, plan in plans.items():
+            fq = plan.fake_quant(params)
+            kl[name] = float(np.mean([
+                float(metrics.mean_topk_kl(d, apply(fq, b), k=128))
+                for d, b in zip(dense, held)]))
+            del fq
+    check(all(np.isfinite(v) and v > 0 for v in kl.values()),
+          f"KLs must be finite and positive: {kl}")
+    emit(phase="allocation", step="kl", k=128, held_out_batches=2,
+         kl_flat_t4=kl["flat"], kl_allocated=kl["allocated"],
+         bits_flat=plans["flat"].bits_per_param(params),
+         bits_allocated=plans["allocated"].bits_per_param(params),
+         seconds=time.monotonic() - t0)
+
+    # 3. packed apply at M = B·T = 2048 against the dense apply over the
+    # dequantised checkpoint (the same quantised weights)
+    plan4 = build_plan(params, SPEC)
+    qparams = plan4.quantise(params)
+    packed = plan4.pack_quantised(qparams, transformer.pack_layouts(cfg))
+    deq = plan4.dequantise(qparams)
+    del qparams
+    runs = []
+    with torch.no_grad():
+        apply(packed, held[0])                        # warm the tables
+        for m in mods.values():
+            m.launches = 0
+        logits, device_kernels = count_matmul_kernels(
+            lambda: apply(packed, held[0]))
+        launches = {name: m.launches for name, m in mods.items()}
+        runs.append({"launches": launches})
+        check(launches == {"dequant_matmul": 182, "dequant_matmul_t": 1,
+                           "block_quant": 0, "decode_attention_quant": 0},
+              f"packed apply launched {launches}")
+        check(device_kernels == {"dequant_matmul": 182,
+                                 "dequant_matmul_t": 1},
+              f"packed apply ran device kernels {device_kernels}")
+        want = apply(deq, held[0])
+        rel, margin = hold_logits(logits, want, "packed vs dequantised "
+                                      "dense apply, B=2 T=1024")
+        check(margin > 0, "no high-margin position to compare")
+        kl_packed = float(metrics.mean_topk_kl(dense[0], logits, k=128))
+        kl_deq = float(metrics.mean_topk_kl(dense[0], want, k=128))
+        check(abs(kl_packed - kl_deq) <= 0.05 * kl_deq,
+              f"packed KL {kl_packed} vs fake-quant KL {kl_deq}")
+        del logits, want, dense
+        flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+        packed_ms = time_ms(lambda: apply(packed, held[0]), flush, reps=3)
+        dense_ms = time_ms(lambda: apply(deq, held[0]), flush, reps=3)
+        del flush, deq
+        one = {"tokens": held[1]["tokens"][:1, :512]}
+        card = apply(packed, one).cpu()
+    t0 = time.monotonic()
+    with torch.no_grad():
+        cpu = apply(params_to(packed, torch.device("cpu")),
+                    {"tokens": one["tokens"].cpu()})
+    cpu_s = time.monotonic() - t0
+    cpu_rel, cpu_margin = hold_logits(card, cpu, "packed apply, card vs "
+                                          "CPU plain path, T=512")
+    check(cpu_margin > 0, "no high-margin position in the CPU compare")
+    del packed, card, cpu
+    emit(phase="allocation", step="packed_apply", tokens=[2, 1024],
+         launches=launches, profiler_device_kernels=device_kernels,
+         dequant_max_rel_logit_err=rel, dequant_margin_positions=margin,
+         kl_packed=kl_packed, kl_fake_quant=kl_deq,
+         kl_rel_diff=abs(kl_packed - kl_deq) / kl_deq,
+         packed_apply_ms=packed_ms, dense_apply_ms=dense_ms,
+         cpu_tokens=512, cpu_layers=cfg.n_layers,
+         cpu_max_rel_logit_err=cpu_rel, cpu_margin_positions=cpu_margin,
+         cpu_s=cpu_s)
+
+    # 4. the card's Fisher against the CPU's, one T=256 sequence, the same
+    # labels (drawn on the CPU) on both sides
+    seq = [{"tokens": held[1]["tokens"][1:2, :256]}]
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 256)))
+    sample = fisher._sample_labels
+    fisher._sample_labels = lambda logits, gen: labels.to(logits.device)
+    try:
+        t0 = time.monotonic()
+        f_card = fisher.per_tensor_stats(
+            params, fisher.estimate_diag_fisher(apply, params, seq, None))
+        card_s = time.monotonic() - t0
+        cpu_params = params_to(params, torch.device("cpu"))
+        t0 = time.monotonic()
+        f_cpu = fisher.per_tensor_stats(
+            cpu_params, fisher.estimate_diag_fisher(
+                lambda p, b: apply(p, b, cfg.replace(remat="none")),
+                cpu_params, [{"tokens": seq[0]["tokens"].cpu()}], None))
+        cpu_s = time.monotonic() - t0
+    finally:
+        fisher._sample_labels = sample
+    del cpu_params
+    rel = {k: abs(f_card[k]["fisher_mean"] - f_cpu[k]["fisher_mean"])
+           / f_cpu[k]["fisher_mean"] for k in f_cpu}
+    check(max(rel.values()) <= 0.05, f"card vs CPU fisher_mean: {rel}")
+    emit(phase="allocation", step="fisher_vs_cpu", tokens=256,
+         max_rel_diff=max(rel.values()), rel_diff=rel, card_s=card_s,
+         cpu_s=cpu_s)
+    del params
+    torch.cuda.empty_cache()
+
+    # 5. --kv-format auto, then serving on the formats it chose
+    import contextlib
+    import io
+    from repro_torch.launch import serve as serve_cli
+    spec = transformer.cache_spec(cfg, 4, 1024, slack=8)
+    f32_bytes = sum(2 * len(g.layers) * 4 * g.length * spec.kv_heads *
+                    spec.head_dim * 4 for g in spec.groups)
+    budget = f32_bytes // 2       # half the all-f32 cache: demotes a group
+    for m in mods.values():
+        m.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        done = serve_cli.main([
+            "--arch", "gemma3-1b", "--variant", "full", "--quantise", SPEC,
+            "--packed", "--kv-format", "auto", "--kv-budget-bytes",
+            str(budget), "--kv-len", "1024", "--slots", "4", "--requests",
+            "4", "--max-new", "8", "--device", "cuda"])
+    torch.cuda.synchronize()
+    launches = {name: m.launches for name, m in mods.items()}
+    runs.append({"launches": launches})
+    print(out.getvalue(), end="", flush=True)
+    line = next(ln for ln in out.getvalue().splitlines()
+                if "kv auto allocation" in ln)
+    fmts = line.split(": ")[1].split(" ")[0].split(",")
+    check(len(fmts) == 2 and fmts != ["f32", "f32"],
+          f"--kv-format auto demoted no group: {fmts}")
+    check(len(done) == 4 and all(len(g.tokens) == 8 and not g.failed
+                                 for g in done),
+          "--kv-format auto: requests did not all finish")
+    check(launches["block_quant"] > 0 and
+          launches["decode_attention_quant"] > 0,
+          f"--kv-format auto served without the quantised KV path: "
+          f"{launches}")
+    emit(phase="allocation", step="kv_format_auto", budget_bytes=budget,
+         all_f32_bytes=f32_bytes, formats=fmts, launches=launches,
+         tokens={g.rid: g.tokens for g in done})
+
+    # 6. the matmul kernels at M = 2048
+    tf_rows = teacher_forcing_times(mods, dev, tc_ptxas)
+    emit(phase="timing", allocation_phase_s=time.monotonic() - t_phase)
+    return runs, tf_rows
+
+
 def device_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -1247,8 +1548,12 @@ def main() -> int:
     emit(phase="timing", dense_serve_end_s=time.monotonic() - t_start)
     gemma = gemma3_phase(dev, mods)
     emit(phase="timing", gemma3_end_s=time.monotonic() - t_start)
+    alloc_runs, tf_rows = allocation_phase(dev, mods, tc_ptxas)
+    for name, rs in tf_rows.items():
+        rows[name] += rs
+    emit(phase="timing", allocation_end_s=time.monotonic() - t_start)
 
-    line = summary(rows, [paper, deepseek, *gemma])
+    line = summary(rows, [paper, deepseek, *gemma, *alloc_runs])
     emit(phase="timing", total_s=time.monotonic() - t_start)
     emit(kernels=line)
     emit(ok=True, device={"platform": "gpu",

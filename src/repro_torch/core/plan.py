@@ -3,8 +3,8 @@
 Plans are keyed by tensor paths written like the reference's
 (``"['layers']['wq']"``), built from a single spec string, and applied to
 nested-dict parameter trees for direct-cast and packed-checkpoint paths.
-Bit allocation and Lloyd-Max plans come with ``core/allocation.py`` and
-``core/lloyd.py``.
+``build_allocated_plan`` realises a per-tensor bit allocation (Eq. 5,
+``core/allocation.py``); Lloyd-Max plans come with ``core/lloyd.py``.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import numpy as np
 
 from .element import ElementFormat
 from .nibble import pack_nibbles
-from .registry import parse_format
+from .registry import parse_element, parse_format, parse_scaling
 from .tensor_format import PackedTensor, QuantisedTensor, TensorFormat
 
 
@@ -182,3 +182,27 @@ def build_plan(params, spec: str, min_ndim: int = 2,
     return QuantisationPlan(formats)
 
 
+
+
+def build_allocated_plan(
+    params,
+    bit_alloc: Dict[str, float],
+    scaling_spec: str,
+    element_family: str = "t",
+    min_bits: float = 1.0,
+) -> QuantisationPlan:
+    """Variable-bit plan (§2.4): per-tensor bit widths from Eq. 5, realised
+    with the ∛p element family at each tensor's allocated width. Tensors
+    the allocation does not name, or too small to quantise, stay dense."""
+    scaling = parse_scaling(scaling_spec)
+    formats: Dict[str, Optional[TensorFormat]] = {}
+    for name, x in flat_with_paths(params):
+        if name not in bit_alloc or not quantisable(name, x):
+            formats[name] = None
+            continue
+        bits = max(min_bits, bit_alloc[name])
+        elem = parse_element(f"{element_family}{bits:g}", scaling)
+        formats[name] = TensorFormat(
+            element=elem, scaling=scaling,
+            name=f"{scaling_spec}:{element_family}{bits:.2f}")
+    return QuantisationPlan(formats)

@@ -5,8 +5,11 @@ packed, served to a batch of requests by the continuous-batching engine.
         --variant full --quantise babsmax64:n4 --packed --kv-format q8
 
 Runs on the card by default; ``--device cpu`` runs the plain torch path.
-Loading a checkpoint (``--ckpt``), the Fisher KV allocation (``--kv-format
-auto``) and the traffic replay front end come with later slices.
+``--kv-format auto --kv-budget-bytes N`` picks each cache group's format
+(f32, q8 or q4) by the Fisher sensitivity of its K/V rows, measured on a
+short dense decode, so that the serving cache fits N bytes. Loading a
+checkpoint (``--ckpt``) and the traffic replay front end come with later
+slices.
 """
 from __future__ import annotations
 
@@ -40,7 +43,14 @@ def main(argv=None):
     ap.add_argument("--kv-format", default=None,
                     help="KV-cache storage: f32 (dense, the default), q8 or "
                          "q4 (block-scaled codes + per-row scales), one for "
-                         "every cache group or a comma list, one per group")
+                         "every cache group or a comma list, one per group; "
+                         "or auto (per-group Fisher allocation under "
+                         "--kv-budget-bytes)")
+    ap.add_argument("--kv-budget-bytes", type=int, default=None,
+                    help="with --kv-format auto: resident KV cache byte "
+                         "budget the Fisher allocator demotes formats "
+                         "(f32 -> q8 -> q4, least-sensitive group first) "
+                         "to meet")
     ap.add_argument("--prefill-chunk", type=int, default=8,
                     help="batched chunked-prefill width")
     ap.add_argument("--requests", type=int, default=4)
@@ -65,13 +75,12 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     cfg = configs.get_config(args.arch, args.variant)
-    if args.kv_format == "auto":
-        raise SystemExit("[serve] --kv-format auto (the Fisher KV "
-                         "allocation) is not ported yet; name the formats")
-    if args.kv_format and args.kv_format != "f32":
-        cfg = cfg.replace(kv_format=args.kv_format)
     fam = get_family(cfg.family)
     params = fam.init(cfg, seed=args.seed, device=device)
+    if args.kv_format == "auto":
+        cfg = cfg.replace(kv_format=_auto_kv_format(cfg, fam, params, args))
+    elif args.kv_format and args.kv_format != "f32":
+        cfg = cfg.replace(kv_format=args.kv_format)
     kw = dict(batch_slots=args.slots, kv_len=args.kv_len,
               prefill_chunk=args.prefill_chunk,
               strict_admission=not args.relaxed_admission,
@@ -134,6 +143,41 @@ def main(argv=None):
         print(f"  rid={g.rid} tokens={g.tokens}"
               + (f" FAILED: {g.fail_reason}" if g.failed else ""))
     return done
+
+
+def _auto_kv_format(cfg, fam, params, args) -> str:
+    """--kv-format auto: estimate per-cache-group Fisher sensitivity on a
+    short dense decode, then demote formats (f32 -> q8 -> q4, least
+    sensitive first) until the serving-geometry cache fits
+    --kv-budget-bytes. Returns the explicit comma-separated format list
+    the config carries from here on."""
+    from repro_torch.core.allocation import (allocate_kv_formats,
+                                             kv_format_bytes)
+    from repro_torch.core.fisher import estimate_kv_fisher
+    if args.kv_budget_bytes is None:
+        raise SystemExit("[serve] --kv-format auto needs --kv-budget-bytes")
+    if fam.cache_spec is None:
+        raise SystemExit(f"[serve] --kv-format auto: family {cfg.family!r} "
+                         "declares no cache geometry")
+    stats = estimate_kv_fisher(cfg, params, batch_size=2,
+                               kv_len=min(args.kv_len, 32))
+    # rescale calibration numels to the serving geometry (same groups,
+    # serving batch/kv_len): budget what will actually be resident
+    spec = fam.cache_spec(cfg, args.slots, args.kv_len,
+                          slack=args.prefill_chunk,
+                          windowed=not args.uniform_cache)
+    for g in spec.groups:
+        stats[f"g{g.index}"]["numel"] = (
+            2 * len(g.layers) * args.slots * g.length * spec.kv_heads *
+            spec.head_dim)
+    alloc = allocate_kv_formats(stats, args.kv_budget_bytes, cfg.hd)
+    fmts = [alloc[f"g{g.index}"] for g in spec.groups]
+    total = sum(stats[f"g{g.index}"]["numel"] *
+                kv_format_bytes(alloc[f"g{g.index}"], cfg.hd)
+                for g in spec.groups)
+    print(f"[serve] kv auto allocation under {args.kv_budget_bytes:,} B: "
+          f"{','.join(fmts)} (~{total:,.0f} B resident KV)")
+    return ",".join(fmts)
 
 
 if __name__ == "__main__":

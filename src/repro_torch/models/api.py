@@ -143,7 +143,7 @@ class ModelFamily:
     name: str
     param_specs: Callable           # (cfg) -> tree[ParamSpec]
     init: Callable                  # (cfg, seed=, device=) -> params
-    apply: Callable = None          # teacher-forcing forward (not ported yet)
+    apply: Callable = None          # (params, batch, cfg) -> f32 logits
     decode_state_specs: Callable = None
     decode_step: Callable = None    # (params, state, batch, cfg) -> (logits, state)
     prefill: Callable = None

@@ -1,6 +1,7 @@
-"""Shared layers of the decode path: the packed-aware projection API
-(``linear``, ``embed_lookup``), RMSNorm, RoPE, multi-token decode attention
-over a dense or quantised KV cache, cache writes and the SwiGLU MLP.
+"""Shared layers: the packed-aware projection API (``linear``,
+``embed_lookup``), RMSNorm, RoPE, multi-token decode attention over a dense
+or quantised KV cache, cache writes, the teacher-forcing chunked
+``flash_attention`` and ``attn_block``, and the SwiGLU MLP.
 
 Torch on the operands' device. ``linear`` is the single way a model
 multiplies an activation by a parameter: dense weights take the einsum of
@@ -364,6 +365,77 @@ def attn_decode(x, p: AttnParams, k_cache, v_cache, geo: StepGeometry, cfg):
         o = chunked_decode_attention(q, k_cache, v_cache, geo.positions,
                                      window=geo.window, ring=geo.ring,
                                      codebook=geo.codebook)
+    return linear(o, p.wo, "btnh,nhd->btd")
+
+
+# ---------------------------------------------------------------------------
+# Teacher-forcing attention (apply / prefill)
+# ---------------------------------------------------------------------------
+
+def flash_attention(q, k, v, q_positions, k_positions, *, causal: bool = True,
+                    window: int = 0, chunk: int = 1024, k_valid_len=None):
+    """Chunked online-softmax attention over ``chunk`` keys at a time (never
+    the full score matrix): the reference's ``lax.scan`` as a loop over the
+    chunks, in its order and with its casts (scores in q's dtype, then f32;
+    probabilities in v's dtype). Plain torch; autograd runs through it.
+
+    q: (B, Tq, H, hd) with H = K·G; k, v: (B, Tk, K, hd); q_positions (Tq,)
+    and k_positions (Tk,). window: 0 = global, > 0 = only keys within
+    ``window``. k_valid_len: optional scalar or (B,) count of valid keys.
+    Tk is padded to a multiple of the chunk with keys at position 2³⁰,
+    which every query masks."""
+    B, Tq, H, hd = q.shape
+    Tk, K = k.shape[1], k.shape[2]
+    G = H // K
+    qg = q.reshape(B, Tq, K, G, hd)
+    scale = hd ** -0.5
+    chunk = min(chunk, Tk)
+    pad = (-Tk) % chunk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        k_positions = torch.nn.functional.pad(k_positions, (0, pad),
+                                              value=2 ** 30)
+    valid = (None if k_valid_len is None else torch.as_tensor(
+        k_valid_len, device=q.device).reshape(-1, 1, 1))
+    m = torch.full((B, Tq, K, G), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, Tq, K, G), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Tq, K, G, hd), dtype=torch.float32,
+                      device=q.device)
+    for c0 in range(0, Tk + pad, chunk):
+        kc, vc = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+        kp = k_positions[c0:c0 + chunk]
+        s = torch.einsum("btkgh,bskh->btkgs", qg, kc.to(qg.dtype)) * scale
+        s = s.float()
+        mask = (kp < 2 ** 30)[None, None, :]                 # (1, 1, chunk)
+        if causal:
+            mask = mask & (q_positions[:, None] >= kp[None, :])
+        if window > 0:
+            mask = mask & (q_positions[:, None] - kp[None, :] < window)
+        if valid is not None:
+            mask = mask & (kp < valid)
+        mask = mask.expand(-1, Tq, -1)[:, :, None, None, :]
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "btkgs,bskh->btkgh", p.to(vc.dtype), vc).float()
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(B, Tq, H, hd).to(q.dtype)
+
+
+def attn_block(x, p: AttnParams, positions, cfg, window: int = 0):
+    """The training/prefill attention block (the caller adds the pre-norm
+    residual): project, rotate by ``positions`` (T,), causal chunked
+    attention over the whole sequence, project out."""
+    rot = rope_tables(positions, cfg.hd, cfg.rope_theta)
+    q, k, v = qkv_project(x, p, rot, cfg)
+    o = flash_attention(q, k, v, positions, positions, causal=True,
+                        window=window, chunk=cfg.attn_chunk)
     return linear(o, p.wo, "btnh,nhd->btd")
 
 

@@ -1,6 +1,6 @@
-"""Decoder-only transformer LM, decode path: parameter specs, init, the
-grouped KV cache geometry, the ragged ``decode_step`` and the packed-serving
-layouts.
+"""Decoder-only transformer LM: parameter specs, init, the teacher-forcing
+``apply``/``prefill``, the grouped KV cache geometry, the ragged
+``decode_step`` and the packed-serving layouts.
 
 Parameters keep the reference's stacked layout (``params["layers"][key]``
 has a leading L dim), so checkpoints carry across unchanged. The
@@ -10,19 +10,23 @@ at its group-local slot, of its cache group's (L_g, B, S, K, ·) stacks, and
 writes its new k/v into those views in place. Layer groups may be global
 (linear caches) or windowed (ring caches, gemma3's local layers), dense or
 quantised (q8/q4 codes with per-row scales). Tied embeddings serve the
-logits from the packed embedding table. MoE experts and the
-teacher-forcing ``apply`` come with later slices and raise here.
+logits from the packed embedding table. ``apply`` runs the same layer
+stack over whole sequences (chunked ``flash_attention``, no cache), on
+dense or packed weights, with each layer rematerialised under autograd
+when ``cfg.remat`` asks. MoE experts come with a later slice and raise
+here.
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.tensor_format import PackedTensor
 
 from .api import (ModelConfig, ModelFamily, ParamSpec, init_from_specs,
                   register_family, ring_prologue, torch_dtype)
-from .layers import (AttnParams, MlpParams, QuantisedKV, attn_decode,
-                     embed_lookup, linear, rms_norm, rope_tables,
+from .layers import (AttnParams, MlpParams, QuantisedKV, attn_block,
+                     attn_decode, embed_lookup, linear, rms_norm, rope_tables,
                      step_geometry, swiglu)
 
 
@@ -74,6 +78,66 @@ def param_specs(cfg: ModelConfig) -> dict:
 def init(cfg: ModelConfig, *, seed: int = 0, device=None):
     """Seeded random parameters on ``device`` (default the card)."""
     return init_from_specs(param_specs(cfg), seed=seed, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Forward (teacher forcing)
+# ---------------------------------------------------------------------------
+
+def _layer_attn_params(lp) -> AttnParams:
+    return AttnParams(lp["wq"], lp["wk"], lp["wv"], lp["wo"],
+                      lp.get("q_norm"), lp.get("k_norm"))
+
+
+def _layer_body(cfg: ModelConfig, x, lp, window: int, positions):
+    """One decoder layer. x: (B, T, D)."""
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    x = x + attn_block(h, _layer_attn_params(lp), positions, cfg, window)
+    h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    return x + swiglu(h, MlpParams(lp["w_gate"], lp["w_up"], lp["w_down"]))
+
+
+def _scan_layers(cfg: ModelConfig, x, layers, positions):
+    """The reference's scan over the stacked layers as a loop, each layer
+    at its window from ``cfg.window_pattern()``. Under autograd,
+    ``cfg.remat`` "full" (and "dots": the port has no per-op save policy)
+    keeps only each layer's input and recomputes the layer in the
+    backward pass."""
+    remat = cfg.remat in ("full", "dots") and torch.is_grad_enabled()
+    for i, window in enumerate(cfg.window_pattern()):
+        args = (cfg, x, _layer(layers, i), int(window), positions)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(_layer_body, *args,
+                                                  use_reentrant=False)
+        else:
+            x = _layer_body(*args)
+    return x
+
+
+def apply(params, batch, cfg: ModelConfig):
+    """Teacher-forcing forward. batch: {"tokens": (B, T) int, optional
+    "vis_embed": (B, P, D) patch embeddings, prepended to the tokens}.
+    Computes in ``cfg.dtype`` (f32 master weights are cast inside each
+    ``linear``, so gradients reach them); packed weights run the
+    ``dequant_matmul`` kernels with M = B·T. Returns f32 logits (B, T, V)
+    (T + P with ``vis_embed``)."""
+    tokens = batch["tokens"]
+    T = tokens.shape[1]
+    dt = torch_dtype(cfg.dtype)
+    x = embed_lookup(params["embed"], tokens, dtype=dt)
+    if "vis_embed" in batch:
+        x = torch.cat([batch["vis_embed"].to(dt), x], dim=1)
+        T = x.shape[1]
+    positions = torch.arange(T, device=tokens.device)
+    x = _scan_layers(cfg, x, params["layers"], positions)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _unembed(x, params, cfg).float()
+
+
+def prefill(params, batch, cfg: ModelConfig):
+    """Process a full prompt, returning its logits (the serving engine
+    writes its KV cache through chunked ``decode_step`` calls instead)."""
+    return apply(params, batch, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -159,10 +223,9 @@ def decode_step(params, state, batch, cfg: ModelConfig):
         g, j = where[i]
         lp = _layer(params["layers"], i)
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        attn = AttnParams(lp["wq"], lp["wk"], lp["wv"], lp["wo"],
-                          lp.get("q_norm"), lp.get("k_norm"))
-        x = x + attn_decode(h, attn, _at(caches[g][0], j),
-                            _at(caches[g][1], j), geos[g], cfg)
+        x = x + attn_decode(h, _layer_attn_params(lp),
+                            _at(caches[g][0], j), _at(caches[g][1], j),
+                            geos[g], cfg)
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
         x = x + swiglu(h, MlpParams(lp["w_gate"], lp["w_up"], lp["w_down"]))
     new_state = {**st, "pos": pos + adv}
@@ -203,8 +266,10 @@ register_family(ModelFamily(
     name="transformer",
     param_specs=param_specs,
     init=init,
+    apply=apply,
     decode_state_specs=decode_state_specs,
     decode_step=decode_step,
+    prefill=prefill,
     supports_ragged=True,
     cache_spec=cache_spec,
     pack_layouts=pack_layouts,

@@ -1,6 +1,7 @@
 """On the card: the CUDA kernels of the quantised-KV and tied-unembed path
 (``block_quant`` and its paired k + v write ``block_quant_kv``,
-``decode_attention_quant``, ``dequant_matmul_t``) against
+``decode_attention_quant``, ``dequant_matmul_t``), and both matmul kernels
+at the teacher-forcing M of ``apply`` (M = B·T up to 2048), against
 their plain torch versions on the same inputs. Every test here needs an
 NVIDIA GPU and skips elsewhere; the file imports nothing of JAX, so it runs
 on a machine that has only the port.
@@ -19,8 +20,10 @@ from repro_torch.kernels.block_quant.ref import (block_quant_ref, midpoints,
 from repro_torch.kernels.decode_attention import decode_attention as daq
 from repro_torch.kernels.decode_attention.ref import \
     decode_attention_quant_ref
+from repro_torch.kernels.dequant_matmul import dequant_matmul as dqm
 from repro_torch.kernels.dequant_matmul import dequant_matmul_t as dqmt
-from repro_torch.kernels.dequant_matmul.ref import dequant_matmul_t_ref
+from repro_torch.kernels.dequant_matmul.ref import (dequant_matmul_ref,
+                                                    dequant_matmul_t_ref)
 from repro_torch.models.layers import quantise_kv
 from repro_torch.serve.cache import kv_bits, kv_codebook
 
@@ -475,3 +478,84 @@ def test_kernels_raise_on_bad_operands(cuda_device):
     with pytest.raises(ValueError, match="scales"):
         ops.dequant_matmul_t(x, codes, scales[:, :1].contiguous(), cb4,
                              block=32, bits=4)
+
+
+# ---------------------------------------------------------------------------
+# Teacher-forcing M: apply flattens (B, T) into the rows of every matmul
+
+
+PREFILL_M = [33, 512, 2048]
+GEMMA3_PROJECTIONS = [(1152, 1024), (1152, 256), (1024, 1152), (1152, 6912),
+                      (6912, 1152)]
+GEMMA3_TABLE = (262144, 1152)
+
+
+def prefill_args(M, K, N, bits, block, seed, device, x_cols=None):
+    """bf16 x (M, K) (or (M, x_cols)), codes (K, N) nibble-packed along K
+    at 4 bits, bf16 scales (K, N // block) and a sorted codebook, made on
+    the card from ``seed``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n_codes = 16 if bits == 4 else 256
+    x = torch.randn(M, x_cols or K, generator=gen, device=device).to(
+        torch.bfloat16)
+    codes = torch.randint(0, n_codes, (K, N), generator=gen, device=device,
+                          dtype=torch.int32).to(torch.uint8)
+    if bits == 4:
+        codes = pack_nibbles(codes).contiguous()
+    scales = (torch.rand(K, N // block, generator=gen, device=device) * 0.05
+              + 0.01).to(torch.bfloat16)
+    cb = torch.sort(torch.randn(n_codes, generator=gen, device=device)).values
+    return x, codes, scales, cb
+
+
+def hold_on_card(y, y_plain):
+    """The bf16 tensor-core tolerance (cb·scale and the output rounded to
+    bf16), compared on the card: the unembed's output at M = 2048 is 1 GB."""
+    scale = float(y_plain.float().abs().max())
+    torch.testing.assert_close(y.float(), y_plain.float(), rtol=1.6e-2,
+                               atol=1e-2 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", PREFILL_M)
+@pytest.mark.parametrize("K,N", GEMMA3_PROJECTIONS)
+def test_dequant_matmul_at_teacher_forcing_m(cuda_device, M, K, N):
+    """gemma3-1b's projections at M past one 32-row tile: one launch a call,
+    reruns bitwise equal, no K split at M = 2048."""
+    args = prefill_args(M, K, N, 4, 64, M + K + N, cuda_device)
+    before = dqm.launches
+    y = ops.dequant_matmul(*args, block=64, bits=4)
+    again = ops.dequant_matmul(*args, block=64, bits=4)
+    torch.cuda.synchronize()
+    assert dqm.launches == before + 2
+    assert torch.equal(y, again)
+    if M == 2048:
+        _, geo, _, _ = dqm._geometry(True, 1, M, K, N, 4, 8,
+                                     cuda_device.index or 0)
+        assert geo.splits == 1 and geo.m_tiles == 64
+    hold_on_card(y, dequant_matmul_ref(*args, 64, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", PREFILL_M)
+def test_dequant_matmul_8bit_at_teacher_forcing_m(cuda_device, M):
+    args = prefill_args(M, 1152, 1024, 8, 64, M, cuda_device)
+    y = ops.dequant_matmul(*args, block=64, bits=8)
+    assert torch.equal(y, ops.dequant_matmul(*args, block=64, bits=8))
+    hold_on_card(y, dequant_matmul_ref(*args, 64, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", PREFILL_M)
+def test_dequant_matmul_t_at_teacher_forcing_m(cuda_device, M):
+    """gemma3-1b's tied 262144 x 1152 table (nibble-packed along V) at the
+    teacher-forcing M: one launch a call, reruns bitwise equal."""
+    V, D = GEMMA3_TABLE
+    args = prefill_args(M, V, D, 4, 64, M, cuda_device, x_cols=D)
+    before = dqmt.launches
+    y = ops.dequant_matmul_t(*args, block=64, bits=4)
+    again = ops.dequant_matmul_t(*args, block=64, bits=4)
+    torch.cuda.synchronize()
+    assert dqmt.launches == before + 2
+    assert y.shape == (M, V) and torch.equal(y, again)
+    hold_on_card(y, dequant_matmul_t_ref(*args, 64, 4))

@@ -273,7 +273,7 @@ def test_serve_cli_kv_format_on_cpu(capsys):
                        "--requests", "2", "--slots", "2"])
     assert len(done) == 2 and all(g.done for g in done)
     assert "quantised KV (q8,q4)" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="not ported yet"):
+    with pytest.raises(SystemExit, match="needs --kv-budget-bytes"):
         serve.main(["--arch", ARCH, "--variant", "smoke", "--kv-format",
                     "auto", "--device", "cpu"])
 
