@@ -60,7 +60,24 @@ Phases, each printed as JSON lines:
    ``launch.serve --kv-format auto`` under half the all-f32 cache bytes,
    serving 4 requests on the formats it chose; both matmul kernels timed
    at M = 2048 beside torch.matmul and the bound.
-7. the kernels summary line, then ``{"ok": true, "device": ...}``.
+7. train (the §4 pipeline and the variable-length formats): paper-100m full
+   through ``launch.train`` (20 CE steps, B=8 T=256, checkpoints every 10)
+   and a second run resumed from step 10, held to the first under
+   deterministic algorithms: bitwise with f32 Adam moments, and with 8-bit
+   moments bitwise at the first resumed step and within 1e-2 after it;
+   the checkpoint's bytes and save/restore seconds; ``launch.serve
+   --ckpt`` serving it packed. Then gemma3-1b full: a teacher from 20 CE
+   steps (B=2 T=1024), ``run_qat`` babsmax64:n4 for 10 steps (the full KL
+   to the teacher on a held-out batch must fall from the direct cast), a
+   Fisher-weighted Lloyd-Max plan at 4 bits (babsmax64, Fisher of one
+   sequence, fitted on the host) with each tensor's R beside
+   babsmax64:t4's; each of the two checkpoints packed, its ``apply`` held
+   to the dense ``apply`` over it dequantised, and served with a q8 cache
+   through all four kernels; measured bits/param of trms:t4:C and a 4-bit
+   trms:grid:C plan on the card against the CPU (within 1e-4), each below
+   its fixed-length counterpart; one layer's wq grid codes through the
+   Huffman codec and back.
+8. the kernels summary line, then ``{"ok": true, "device": ...}``.
 
 Every count of kernel launches is set to 0 just before a serve run and read
 just after it. Each profile phase also holds every ``decode_attention_quant``
@@ -70,14 +87,19 @@ when no CUDA device is present.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
+import io
 import json
+import math
+import os
 import re
 import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -152,6 +174,11 @@ WEIGHT_BYTES = {
 
 def emit(**kw):
     print(json.dumps(kw), flush=True)
+
+
+def flat_with_paths(tree):
+    from repro_torch.core.plan import flat_with_paths as flat
+    return flat(tree)
 
 
 def check(cond, msg):
@@ -1331,6 +1358,445 @@ def allocation_phase(dev, mods, tc_ptxas):
     return runs, tf_rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the §4 training pipeline and the variable-length formats
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its stdout captured; returns (result, text)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = fn(*args)
+    return res, out.getvalue()
+
+
+def served(mods, fn):
+    """Run ``fn`` with every kernel's launch count set to 0 just before it
+    and read just after it; returns (result, launches)."""
+    for m in mods.values():
+        m.launches = 0
+    res = fn()
+    torch.cuda.synchronize()
+    return res, {name: m.launches for name, m in mods.items()}
+
+
+def deterministic_runs(fn):
+    """``fn()`` under ``torch.use_deterministic_algorithms`` (warn-only, so
+    an op with no deterministic CUDA form is named, not fatal); returns
+    (result, the names of such ops)."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ops = sorted({str(w.message).split(" does not have a deterministic")[0]
+                  for w in caught
+                  if "does not have a deterministic" in str(w.message)})
+    return res, ops
+
+
+def resume_phase(dev, mods, root):
+    """paper-100m full: ``launch.train`` for 20 steps of CE (B=8, T=256, lr
+    5e-4 after 4 warmup steps) with checkpoints every 10, then a second run from the step-10 checkpoint,
+    held to steps 11-20 of the first: with f32 Adam moments bitwise, with
+    8-bit moments (``--quantised-opt``) bitwise at step 11 and within 1e-2
+    after it: the f32 moments of the checkpoint requantise to other scales
+    in some blocks, and the reference's 8-bit Adam makes loss spikes that
+    amplify the difference (an element whose v flushes to 0 while its m,
+    on a grid without 0, does not, moves by about lr·m/eps). Then ``launch.serve --ckpt`` serves the checkpoint
+    packed. Returns the serve run's launches."""
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import checkpoint as ckpt
+    base = ["--arch", "paper-100m", "--variant", "full", "--steps", "20",
+            "--batch", "8", "--seq", "256", "--lr", "5e-4", "--warmup", "4",
+            "--log-every", "1", "--seed", "0", "--device", "cuda"]
+    out = {}
+    for moments in ("f32", "8bit"):
+        flags = base + (["--quantised-opt"] if moments == "8bit" else [])
+        a, b = root / f"{moments}_a", root / f"{moments}_b"
+        t0 = time.monotonic()
+        ((state_a, hist_a), _), nondet = deterministic_runs(lambda: quiet(
+            train_cli.main, flags + ["--ckpt-dir", str(a), "--ckpt-every",
+                                     "10"]))
+        first_s = time.monotonic() - t0
+        shutil.copytree(a / "step_00000010", b / "step_00000010")
+        t0 = time.monotonic()
+        ((state_b, hist_b), _), nondet_b = deterministic_runs(lambda: quiet(
+            train_cli.main, flags + ["--ckpt-dir", str(b)]))
+        resumed_s = time.monotonic() - t0
+        nondet = sorted(set(nondet) | set(nondet_b))
+        losses_a = [h["loss"] for h in hist_a]
+        losses_b = [h["loss"] for h in hist_b]
+        emit(phase="train", step="resume_losses", moments=moments,
+             losses=losses_a, resumed_losses=losses_b,
+             nondeterministic_ops=nondet)
+        check([h["step"] for h in hist_b] == list(range(10, 20)),
+              f"resume did not start at step 10: {hist_b}")
+        check(np.mean(losses_a[-3:]) < 0.9 * np.mean(losses_a[:3]),
+              f"paper-100m CE did not fall: {losses_a}")
+        pa, pb = (dict(flat_with_paths(s["params"])) for s in (state_a,
+                                                               state_b))
+        same = [n for n in pa if torch.equal(pa[n], pb[n])]
+        rel = max(abs(x - y) / abs(x) for x, y in zip(losses_a[10:],
+                                                      losses_b))
+        bitwise = not nondet and moments == "f32"
+        if bitwise:
+            check(losses_b == losses_a[10:] and len(same) == len(pa),
+                  f"f32-moment resume is not bitwise: losses {losses_a[10:]}"
+                  f" vs {losses_b}, {len(same)} of {len(pa)} tensors equal")
+        else:
+            check(losses_b[0] == losses_a[10] or nondet,
+                  f"first resumed loss {losses_b[0]} != {losses_a[10]}")
+            check(rel <= 1e-2, f"{moments} resume: losses differ by {rel}")
+        out[moments] = dict(
+            losses=losses_a, resumed_losses=losses_b, max_rel_loss_diff=rel,
+            bitwise_losses=losses_b == losses_a[10:],
+            equal_tensors=len(same), tensors=len(pa),
+            nondeterministic_ops=nondet, first_run_s=first_s,
+            resumed_run_s=resumed_s,
+            s_per_step=float(np.median([h["s_per_step"]
+                                        for h in hist_a[1:]])))
+        if moments == "f32":
+            path = str(a / "step_00000020")
+            nbytes = os.path.getsize(os.path.join(path, "arrays.npz"))
+            t0 = time.monotonic()
+            ckpt.save_checkpoint(str(root / "timed"), state_a, 20)
+            save_s = time.monotonic() - t0
+            t0 = time.monotonic()
+            back, _ = ckpt.restore_checkpoint(
+                str(root / "timed" / "step_00000020"), template=state_a)
+            torch.cuda.synchronize()
+            restore_s = time.monotonic() - t0
+            check(all(torch.equal(x, y) for (_, x), (_, y) in zip(
+                flat_with_paths(back), flat_with_paths(state_a))),
+                "checkpoint round trip changed the state")
+            out.update(checkpoint_bytes=nbytes, save_s=save_s,
+                       restore_s=restore_s)
+            del back
+            shutil.rmtree(root / "timed")
+        else:
+            shutil.rmtree(a)       # 1.5 GB a checkpoint: keep only f32_a
+        shutil.rmtree(b)
+        del state_a, state_b
+        torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    (done, text), launches = served(mods, lambda: quiet(serve_cli.main, [
+        "--arch", "paper-100m", "--variant", "full", "--ckpt",
+        str(root / "f32_a"), "--quantise", SPEC, "--packed", "--requests",
+        "4", "--max-new", "8", "--device", "cuda"]))
+    check("step_00000020 (step 20)" in text, "serve --ckpt loaded "
+          f"another checkpoint: {text[:300]}")
+    check(len(done) == 4 and all(len(g.tokens) == 8 and not g.failed
+                                 for g in done),
+          "serve --ckpt: requests did not all finish")
+    check(launches["dequant_matmul"] > 0, f"serve --ckpt launched "
+          f"{launches}")
+    emit(phase="train", step="resume", arch="paper-100m", batch=[8, 256],
+         serve_launches=launches, serve_s=time.monotonic() - t0,
+         serve_tokens={g.rid: g.tokens for g in done}, **out)
+    return {"launches": launches}
+
+
+def held_batch(cfg, dev, seed):
+    from repro_torch.data.pipeline import make_batch_fn
+    return {"tokens": torch.from_numpy(make_batch_fn(
+        cfg, seq=1024, batch=2, seed=seed)(0)["tokens"]).to(dev)}
+
+
+def hold_packed(cfg, plan, params, held, what):
+    """The packed ``apply`` of ``plan``'s checkpoint held to the dense
+    ``apply`` over the same checkpoint dequantised, on the card (B=2,
+    T=1024): the logits rule of ``hold_logits``."""
+    from repro_torch.models import transformer
+    qparams = plan.quantise(params)
+    with torch.no_grad():
+        packed = plan.pack_quantised(qparams, transformer.pack_layouts(cfg))
+        got = transformer.apply(packed, held, cfg)
+        del packed
+        want = transformer.apply(plan.dequantise(qparams), held, cfg)
+    rel, margin = hold_logits(got, want, what)
+    check(margin > 0, f"{what}: no high-margin position")
+    return qparams, rel, margin
+
+
+def serve_plan(cfg, qparams, plan, dev, mods, what):
+    """Serve ``plan``'s quantised checkpoint packed with a q8 KV cache (all
+    four kernels): 4 requests, launches counted over the run."""
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine.from_quantised(cfg.replace(kv_format="q8"), qparams,
+                                     plan, batch_slots=4, kv_len=1024,
+                                     prefill_chunk=8, device=dev)
+    reqs = short_requests(cfg.vocab, seed=4)
+    done, stats, _ = serve(eng, mods, reqs, keep_logits=False)
+    check_run("gemma3-1b", done, stats, reqs)
+    check(all(n > 0 for n in stats["launches"].values()),
+          f"{what}: not every kernel ran: {stats['launches']}")
+    del eng
+    torch.cuda.empty_cache()
+    return stats, {g.rid: g.tokens for g in done}
+
+
+def qat_phase(dev, mods):
+    """gemma3-1b full: a teacher from 20 CE steps (B=2, T=1024, lr 5e-4 after
+    4 warmup steps: enough to learn the stream's bigram rule, so its
+    logits have high-margin positions to hold), then
+    ``run_qat`` with babsmax64:n4 for 10 steps; the full KL to the teacher
+    on a held-out batch before (the direct cast) and after, which must
+    fall; the student packed, held to its dense dequantised ``apply`` and
+    served with a q8 cache. Returns (teacher params, serve stats)."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.models import transformer
+    from repro_torch.train import AdamConfig, TrainConfig, train
+    from repro_torch.train.loop import full_kl_loss
+    from repro_torch.train.optimizer import paper_qat_lr
+    from repro_torch.train.qat import qat_plan_for, run_qat
+    cfg = configs.get_config("gemma3-1b", "full")
+    batch_fn = make_batch_fn(cfg, seq=1024, batch=2, seed=1)
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, hist = train(cfg, TrainConfig(steps=20, lr=5e-4, warmup=4,
+                                         log_every=1),
+                        AdamConfig(), batch_fn, device=dev)
+    teacher = state["params"]
+    del state
+    torch.cuda.empty_cache()
+    teacher_s = time.monotonic() - t0
+    teacher_peak = torch.cuda.max_memory_allocated(dev)
+    held = held_batch(cfg, dev, seed=9)
+    plan = qat_plan_for(teacher, SPEC)
+
+    def kl_to_teacher(params):
+        with torch.no_grad():
+            ref = transformer.apply(teacher, held, cfg)
+            fq = plan.fake_quant(params)
+            return float(full_kl_loss(ref, transformer.apply(fq, held, cfg)))
+    kl_direct = kl_to_teacher(teacher)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    state, qhist, plan = run_qat(cfg, teacher, SPEC, batch_fn, steps=10,
+                                 log_every=1)
+    torch.cuda.synchronize()
+    qat_s = time.monotonic() - t0
+    qat_peak = torch.cuda.max_memory_allocated(dev)
+    student = state["params"]
+    del state
+    torch.cuda.empty_cache()
+    kl_after = kl_to_teacher(student)
+    emit(phase="train", step="qat", arch="gemma3-1b", spec=SPEC,
+         batch=[2, 1024], teacher_ce=[h["loss"] for h in hist],
+         teacher_s=teacher_s, teacher_peak_mem_bytes=teacher_peak,
+         teacher_s_per_step=float(np.median([h["s_per_step"]
+                                             for h in hist[1:]])),
+         lr=paper_qat_lr(4), qat_losses=[h["loss"] for h in qhist],
+         kl_direct_cast=kl_direct, kl_after=kl_after,
+         s_per_step=float(np.median([h["s_per_step"] for h in qhist[1:]])),
+         qat_s=qat_s, peak_mem_bytes=qat_peak)
+    check(kl_after < kl_direct, f"QAT did not lower the KL to the teacher: "
+          f"{kl_direct} -> {kl_after}")
+    qparams, rel, margin = hold_packed(
+        cfg, plan, student, held, "QAT student: packed vs dequantised dense "
+        "apply, B=2 T=1024")
+    del student
+    stats, tokens = serve_plan(cfg, qparams, plan, dev, mods, "QAT student")
+    emit(phase="train", step="qat_serve", arch="gemma3-1b", spec=SPEC,
+         dequant_max_rel_logit_err=rel, dequant_margin_positions=margin,
+         serve=stats, tokens=tokens)
+    return teacher, stats
+
+
+def lloyd_phase(dev, mods, params):
+    """gemma3-1b full: the diagonal Fisher on one sequence (T=1024), the
+    Fisher-weighted Lloyd-Max plan at 4 bits under babsmax64 (fitted on the
+    host), each tensor's R against the babsmax64:t4 cube-root format, then
+    the plan packed (16-point data-fitted codebooks), held to its dense
+    dequantised ``apply`` and served with a q8 cache."""
+    from repro_torch import configs
+    from repro_torch.core import build_plan, fisher, fit_lloyd_plan
+    from repro_torch.models import transformer
+    cfg = configs.get_config("gemma3-1b", "full")
+    seq = held_batch(cfg, dev, seed=11)
+    t0 = time.monotonic()
+    fish = fisher.estimate_diag_fisher(
+        lambda p, b: transformer.apply(p, b, cfg), params,
+        [{"tokens": seq["tokens"][:1]}],
+        torch.Generator(device=dev).manual_seed(0))
+    fisher_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    plan = fit_lloyd_plan(params, 4, "babsmax64", fisher=fish)
+    fit_s = time.monotonic() - t0
+    t4 = build_plan(params, "babsmax64:t4")
+    fish = dict(flat_with_paths(fish))
+    r = {}
+    with torch.no_grad():
+        for name, x in flat_with_paths(params):
+            f = plan.formats.get(name)
+            if f is None:
+                continue
+            w = fish[name].to(dev).float()
+            r[name] = dict(
+                codepoints=list(f.element.codepoints),
+                lloyd=float(f.relative_rms_error(x)),
+                t4=float(t4.formats[name].relative_rms_error(x)),
+                lloyd_fisher=float(f.relative_rms_error(x, w)),
+                t4_fisher=float(t4.formats[name].relative_rms_error(x, w)))
+            del w
+    del fish
+    emit(phase="train", step="lloyd", arch="gemma3-1b", bits=4,
+         scaling="babsmax64", fisher_tokens=1024, fisher_s=fisher_s,
+         fit_host_s=fit_s, tensors=r)
+    cps = [np.asarray(v["codepoints"]) for v in r.values()]
+    check(r and all(len(c) == 16 for c in cps),
+          f"Lloyd plan fitted {len(r)} tensors")
+    check(any(not np.allclose(c, -c[::-1]) for c in cps),
+          "no Lloyd codebook is asymmetric")
+    check(sum(v["lloyd_fisher"] < v["t4_fisher"] for v in r.values()) >=
+          len(r) // 2, f"the Fisher-weighted Lloyd fit lost to t4 on most "
+          f"tensors: {r}")
+    qparams, rel, margin = hold_packed(
+        cfg, plan, params, held_batch(cfg, dev, seed=9),
+        "Lloyd plan: packed vs dequantised dense apply, B=2 T=1024")
+    stats, tokens = serve_plan(cfg, qparams, plan, dev, mods, "Lloyd plan")
+    emit(phase="train", step="lloyd_serve", arch="gemma3-1b",
+         dequant_max_rel_logit_err=rel, dequant_margin_positions=margin,
+         serve=stats, tokens=tokens)
+    return stats
+
+
+def grid_plan(params, bits, samples=1 << 20, seed=0):
+    """trms:grid:C with each quantisable tensor's lattice step fitted
+    (``compress.fit_grid_delta``) to ``bits`` of entropy on a seeded sample
+    of 2^20 of its RMS-normalised values (a fit over all of gemma3-1b's
+    embedding on the host would take minutes)."""
+    from repro_torch.core import QuantisationPlan, parse_format
+    from repro_torch.core.compress import fit_grid_delta
+    from repro_torch.core.element import uniform_grid
+    from repro_torch.core.plan import quantisable
+    base = parse_format("trms:grid:C")
+    rng = np.random.default_rng(seed)
+    formats = {}
+    with torch.no_grad():
+        for name, x in flat_with_paths(params):
+            if not quantisable(name, x):
+                formats[name] = None
+                continue
+            xb = base.scaling.normalise(x.float())[0].reshape(-1)
+            idx = torch.from_numpy(rng.integers(0, xb.numel(), samples))
+            sample = xb[idx.to(xb.device)].cpu().numpy()
+            formats[name] = dataclasses.replace(
+                base, element=uniform_grid(fit_grid_delta(sample, bits)))
+    return QuantisationPlan(formats)
+
+
+def fixed_length_grid_bits(plan, params, keep_bits=16.0):
+    """Bits/param of the grid's codes stored at a fixed length: each
+    tensor's codes at ceil(log2(its code range)) bits, plus its scale."""
+    total, n_all = 0.0, 0
+    with torch.no_grad():
+        for name, x in flat_with_paths(params):
+            n, f = x.numel(), plan.formats.get(name)
+            if f is None:
+                total += keep_bits * n
+            else:
+                lo, hi = torch.aminmax(f.quantise(x).codes)
+                total += n * (math.ceil(math.log2(int(hi - lo) + 1))
+                              + f.scaling.scale_bits_per_param(x.shape))
+            n_all += n
+    return total / n_all
+
+
+def accounting_phase(dev, params):
+    """gemma3-1b full: measured bits/param of trms:t4:C and of a 4-bit
+    trms:grid:C plan, the codes made and counted on the card, against the
+    CPU's answer on the same weights (within 1e-4 bits: a tensor-wide RMS
+    summed in another order may flip a few codes), each below its
+    fixed-length counterpart; then one layer's wq grid code stream through
+    the Huffman codec and back."""
+    from repro_torch.core import build_plan, compress
+    from repro_torch.serve.engine import params_to
+    t0 = time.monotonic()
+    plans = {"trms:t4:C": build_plan(params, "trms:t4:C"),
+             "trms:grid:C": grid_plan(params, 4.0)}
+    grid_fit_s = time.monotonic() - t0
+    cpu_params = params_to(params, torch.device("cpu"))
+    out = {}
+    for name, plan in plans.items():
+        t0 = time.monotonic()
+        card = plan.bits_per_param(params, measured=True)
+        card_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        cpu = plan.bits_per_param(cpu_params, measured=True)
+        cpu_s = time.monotonic() - t0
+        check(abs(card - cpu) <= 1e-4, f"{name}: card {card} vs CPU {cpu} "
+              "bits/param")
+        out[name] = dict(card_bits=card, cpu_bits=cpu, card_s=card_s,
+                         cpu_s=cpu_s)
+    del cpu_params
+    t4 = build_plan(params, "trms:t4")
+    out["trms:t4"] = dict(bits=t4.bits_per_param(params))
+    out["trms:grid:C"]["fixed_length_bits"] = fixed_length_grid_bits(
+        plans["trms:grid:C"], params)
+    check(out["trms:t4:C"]["card_bits"] < out["trms:t4"]["bits"],
+          f"trms:t4:C is not below trms:t4: {out}")
+    check(out["trms:grid:C"]["card_bits"] <
+          out["trms:grid:C"]["fixed_length_bits"],
+          f"the grid's entropy is not below its fixed-length codes: {out}")
+    name = "['layers']['wq']"
+    x = params["layers"]["wq"]
+    with torch.no_grad():
+        out["r_wq"] = {k: float(p.formats[name].relative_rms_error(x))
+                       for k, p in (("trms:t4", t4),
+                                    ("trms:grid:C", plans["trms:grid:C"]))}
+        codes = plans["trms:grid:C"].formats[name].quantise(x).codes
+    sym = codes.reshape(x.shape[0], -1)[0].long()
+    sym = (sym - sym.min()).cpu().numpy()
+    hist = np.bincount(sym)
+    hc = compress.build_huffman(hist)
+    t0 = time.monotonic()
+    payload, n_bits = hc.encode(sym)
+    enc_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    back = hc.decode(payload, sym.size)
+    dec_s = time.monotonic() - t0
+    check(np.array_equal(back, sym), "Huffman round trip changed the codes")
+    ent, mean = compress.entropy_bits(hist), hc.mean_bits(hist)
+    check(ent <= mean < ent + 1 and n_bits == round(mean * sym.size),
+          f"Huffman mean {mean} bits against entropy {ent}")
+    out["huffman_wq_layer0"] = dict(
+        symbols=int(sym.size), distinct=int((hist > 0).sum()),
+        entropy_bits=ent, mean_bits=mean, payload_bytes=len(payload),
+        encode_s=enc_s, decode_s=dec_s)
+    emit(phase="train", step="accounting", arch="gemma3-1b",
+         grid_fit_s=grid_fit_s, **out)
+
+
+def train_phase(dev, mods):
+    """The training pipeline and the paper's variable-length formats (phase
+    7); checkpoints go to runs/chip_smoke_train/ in the checkout (git
+    ignores it), removed at the end. Returns the serve runs' launches."""
+    t_phase = time.monotonic()
+    root = Path(__file__).resolve().parent / "runs" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        runs = [resume_phase(dev, mods, root)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit(phase="timing", resume_s=time.monotonic() - t_phase)
+    teacher, qat_stats = qat_phase(dev, mods)
+    emit(phase="timing", qat_end_s=time.monotonic() - t_phase)
+    lloyd_stats = lloyd_phase(dev, mods, teacher)
+    emit(phase="timing", lloyd_end_s=time.monotonic() - t_phase)
+    accounting_phase(dev, teacher)
+    del teacher
+    torch.cuda.empty_cache()
+    emit(phase="timing", train_phase_s=time.monotonic() - t_phase)
+    return runs + [qat_stats, lloyd_stats]
+
+
 def device_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -1517,6 +1983,8 @@ def summary(rows, runs):
 
 
 def main() -> int:
+    # deterministic cuBLAS for the resume check: read when cuBLAS starts
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
@@ -1552,8 +2020,10 @@ def main() -> int:
     for name, rs in tf_rows.items():
         rows[name] += rs
     emit(phase="timing", allocation_end_s=time.monotonic() - t_start)
+    train_runs = train_phase(dev, mods)
+    emit(phase="timing", train_end_s=time.monotonic() - t_start)
 
-    line = summary(rows, [paper, deepseek, *gemma, *alloc_runs])
+    line = summary(rows, [paper, deepseek, *gemma, *alloc_runs, *train_runs])
     emit(phase="timing", total_s=time.monotonic() - t_start)
     emit(kernels=line)
     emit(ok=True, device={"platform": "gpu",

@@ -15,13 +15,15 @@ Builders implement the paper's formats:
   * ``nf4`` / ``sf4`` / ``af4`` — literature baselines
   * ``quantile_format``    — α=1 "proportional" rule (NF4-style), any D
   * ``power_rule_*``       — generalised p^α rule (fig. 22)
-
-The uniform grid (entropy-coded, §2.3) comes with ``core/compress.py``.
+  * ``uniform_grid``       — entropy-constrained optimal (§2.3), for use with
+                             lossless compression (``core/compress.py``)
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -75,6 +77,10 @@ class ElementFormat:
 
     def fake_quant(self, x: torch.Tensor) -> torch.Tensor:
         return self.dequantise(self.quantise(x))
+
+    def rescaled(self, factor: float, name: Optional[str] = None) -> "ElementFormat":
+        cps = tuple(float(c * factor) for c in self.codepoints)
+        return ElementFormat(cps, name or self.name, dict(self.meta))
 
     def __repr__(self):
         return f"ElementFormat({self.name}, n={self.n}, bits={self.bits:.2f})"
@@ -234,3 +240,36 @@ def af4(block_size: int = 64) -> ElementFormat:
     absolute (L1) error → density ∝ sqrt(p) of the truncated Normal."""
     return power_rule_absmax(dist.Normal(), 4, block_size, alpha=0.5,
                              symmetric=False)
+
+
+# ---------------------------------------------------------------------------
+# Uniform grid (entropy-constrained optimum, §2.3)
+# ---------------------------------------------------------------------------
+
+def uniform_grid(delta: float, max_code: int = 2**15 - 1) -> "UniformGrid":
+    return UniformGrid(delta=float(delta), max_code=max_code)
+
+
+@dataclass(frozen=True)
+class UniformGrid:
+    """Uniform lattice {delta·k}; quantise = round(x/delta) (half to even,
+    as ``jnp.round``). Unbounded codebook (clipped to ±max_code), meant to
+    be followed by entropy coding (§2.3)."""
+
+    delta: float
+    max_code: int = 2**15 - 1
+    name: str = "grid"
+
+    @property
+    def bits(self) -> float:  # nominal; true cost is the entropy
+        return math.log2(2 * self.max_code + 1)
+
+    def quantise(self, x: torch.Tensor) -> torch.Tensor:
+        k = torch.round(x / self.delta)
+        return torch.clamp(k, -self.max_code, self.max_code).to(torch.int32)
+
+    def dequantise(self, codes: torch.Tensor) -> torch.Tensor:
+        return codes.float() * self.delta
+
+    def fake_quant(self, x: torch.Tensor) -> torch.Tensor:
+        return self.dequantise(self.quantise(x))

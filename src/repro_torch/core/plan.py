@@ -2,9 +2,10 @@
 
 Plans are keyed by tensor paths written like the reference's
 (``"['layers']['wq']"``), built from a single spec string, and applied to
-nested-dict parameter trees for direct-cast and packed-checkpoint paths.
-``build_allocated_plan`` realises a per-tensor bit allocation (Eq. 5,
-``core/allocation.py``); Lloyd-Max plans come with ``core/lloyd.py``.
+nested-dict parameter trees for direct-cast, QAT (straight-through
+fake-quant) and packed-checkpoint paths. ``build_allocated_plan`` realises
+a per-tensor bit allocation (Eq. 5, ``core/allocation.py``);
+``fit_lloyd_plan`` fits a Lloyd-Max codebook to each tensor (§2.2).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 from .element import ElementFormat
 from .nibble import pack_nibbles
@@ -45,12 +47,19 @@ class QuantisationPlan:
 
     formats: Dict[str, Optional[TensorFormat]] = field(default_factory=dict)
 
+    def lookup(self, name: str) -> Optional[TensorFormat]:
+        return self.formats.get(name)
+
     def _map(self, params, fn):
         return map_with_paths(lambda p, x: fn(self.formats.get(p), x), params)
 
     def fake_quant(self, params):
         return self._map(params,
                          lambda f, x: x if f is None else f.fake_quant(x))
+
+    def fake_quant_ste(self, params):
+        return self._map(params,
+                         lambda f, x: x if f is None else f.fake_quant_ste(x))
 
     def quantise(self, params):
         return self._map(params,
@@ -123,20 +132,27 @@ class QuantisationPlan:
         """Quantise + pack in one step (fresh weights → serving params)."""
         return self.pack_quantised(self.quantise(params), layouts)
 
+    def unpack(self, packed):
+        """Serving params → dense params (PackedTensor leaves dequantised)."""
+        return map_with_paths(
+            lambda _, x: x.dequantise() if isinstance(x, PackedTensor) else x,
+            packed)
+
     def verify_packed(self, packed) -> int:
         """Integrity-validate every PackedTensor leaf (see
         :meth:`PackedTensor.verify`); returns the number checked."""
         return verify_packed_tree(packed)
 
     # -- accounting -----------------------------------------------------------
-    def bits_per_param(self, params, keep_bits: float = 16.0) -> float:
+    def bits_per_param(self, params, measured: bool = False,
+                       keep_bits: float = 16.0) -> float:
         total_bits, total_n = 0.0, 0
         for name, x in flat_with_paths(params):
             n = int(np.prod(tuple(x.shape)))
             f = self.formats.get(name)
             if f is None:
                 total_bits += keep_bits * n
-            elif f.compressed:
+            elif measured or f.compressed:
                 total_bits += f.measured_bits_per_param(x) * n
             else:
                 total_bits += f.bits_per_param(tuple(x.shape)) * n
@@ -182,8 +198,6 @@ def build_plan(params, spec: str, min_ndim: int = 2,
     return QuantisationPlan(formats)
 
 
-
-
 def build_allocated_plan(
     params,
     bit_alloc: Dict[str, float],
@@ -205,4 +219,37 @@ def build_allocated_plan(
         formats[name] = TensorFormat(
             element=elem, scaling=scaling,
             name=f"{scaling_spec}:{element_family}{bits:.2f}")
+    return QuantisationPlan(formats)
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def fit_lloyd_plan(params, bits: float, scaling_spec: str = "trms",
+                   fisher: Optional[dict] = None) -> QuantisationPlan:
+    """Data-fitted Lloyd-Max plan (§2.2), optionally Fisher-weighted: each
+    quantisable tensor is normalised on its own device, then its codebook
+    is fitted on the host (``core/lloyd.py``, numpy)."""
+    from .lloyd import lloyd_max
+
+    scaling = parse_scaling(scaling_spec)
+    fisher_flat = dict(flat_with_paths(fisher)) if fisher is not None else {}
+    formats: Dict[str, Optional[TensorFormat]] = {}
+    for name, x in flat_with_paths(params):
+        if not quantisable(name, x):
+            formats[name] = None
+            continue
+        with torch.no_grad():
+            xb, _, unblock = scaling.normalise(x.float())
+            xn = _host(unblock(xb)).reshape(-1)  # normalised, padding trimmed
+        w = fisher_flat.get(name)
+        init = "uniform" if scaling.statistic in ("absmax", "signmax") \
+            else "kmeans++"
+        elem = lloyd_max(xn, bits,
+                         weights=None if w is None else _host(w).reshape(-1),
+                         init=init)
+        formats[name] = TensorFormat(element=elem, scaling=scaling,
+                                     name=f"{scaling_spec}:lloyd{bits:g}")
     return QuantisationPlan(formats)

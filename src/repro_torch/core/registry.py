@@ -10,8 +10,7 @@ scalefmt  ::=  bf16 (default) | e8m0 | e8m<x> | exact
 element   ::=  n<bits>[a] | l<bits>[a] | t<bits>[a][nu<ν>]   (∛p Normal/Laplace/Student-t,
                                                               'a' = asymmetric)
              | int<bits>[s] | e<E>m<M> | nf4 | sf4 | af4
-             | q<bits> (quantile/α=1 Normal) | grid (uniform lattice, needs :C;
-                                                not ported yet)
+             | q<bits> (quantile/α=1 Normal) | grid (uniform lattice, needs :C)
              | lloyd<bits> (data-fitted at plan time)
 sp<frac>  ::=  sparse outliers, e.g. sp0.001
 C         ::=  lossless compression (entropy-coded elements)
@@ -59,8 +58,7 @@ def parse_element(tok: str, scaling: Scaling, default_nu: float = 7.0):
     absmax-truncated vs signmax-pinned codebooks (§2.1)."""
     tok = tok.strip()
     if tok == "grid":
-        raise ValueError("element 'grid' (uniform lattice + entropy coding) "
-                         "needs core/compress.py, which is not ported yet")
+        return el.uniform_grid(1.0)  # resolution fit at plan time
     if tok == "nf4":
         return el.nf4()
     if tok == "sf4":
@@ -114,3 +112,14 @@ def parse_format(spec: str) -> TensorFormat:
             raise ValueError(f"unknown format modifier {extra!r}")
     return TensorFormat(element=element, scaling=scaling, sparse=sparse,
                         compressed=compressed, name=spec)
+
+
+# Headline formats (fig. 1 / Table 1)
+HEADLINE_FORMATS = (
+    "trms:t4:C",            # Tensor RMS + Compression
+    "trms:t4:sp0.001",      # Tensor RMS + Sparse outliers
+    "cabsmax:t4",           # Channel Absmax
+    "babsmax128:t4",        # Block Absmax
+    "tabsmax:t4",           # Tensor Absmax
+    "trms:t4",              # Tensor RMS (fixed-length baseline)
+)

@@ -3,12 +3,15 @@
     TensorFormat = element format × scaling scheme × sparse outliers
                    × optional lossless compression
 
-  * ``fake_quant(x)``        — dequantise(quantise(x)) (direct-cast).
+  * ``fake_quant(x)``        — dequantise(quantise(x)) (direct-cast);
+                               ``fake_quant_ste`` is its straight-through
+                               form for QAT (§D).
   * ``quantise(x)``          — codes + scales (+ COO outliers): the
                                quantised checkpoint and serving input.
   * ``bits_per_param(...)``  — storage accounting incl. scale and sparse
-                               overhead. Entropy-coded (``:C``) accounting
-                               waits for ``core/compress.py``.
+                               overhead; ``measured_bits_per_param`` adds
+                               the Shannon entropy (or Huffman length) of
+                               a compressed (``:C``) format's code stream.
 
 ``PackedTensor`` is the serving representation the fused ``dequant_matmul``
 kernel consumes: codes in the matmul's (K, N) layout, nibble-packed along K
@@ -18,12 +21,13 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
-from .element import ElementFormat
+from .compress import build_huffman, cross_entropy_bits, entropy_bits
+from .element import ElementFormat, UniformGrid
 from .scaling import Scaling
 from .sparse import SparseOutliers, extract_topk, scatter_coo
 
@@ -34,6 +38,11 @@ def _dtype_name(dt: torch.dtype) -> str:
 
 def _torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
+
+
+def ste(x: torch.Tensor, x_hat: torch.Tensor) -> torch.Tensor:
+    """Straight-through estimator: forward = x_hat, backward = identity."""
+    return x + (x_hat - x).detach()
 
 
 class IntegrityError(ValueError):
@@ -179,7 +188,7 @@ class PackedTensor:
 
 @dataclass(frozen=True)
 class TensorFormat:
-    element: ElementFormat
+    element: Union[ElementFormat, UniformGrid]
     scaling: Scaling = Scaling()
     sparse: Optional[SparseOutliers] = None
     compressed: bool = False
@@ -208,6 +217,14 @@ class TensorFormat:
             y = self.sparse.merge(y, x32, mask)
         return y.to(x.dtype)
 
+    def fake_quant_ste(self, x: torch.Tensor) -> torch.Tensor:
+        """QAT forward: quantised values, identity gradient (paper §D QAT).
+        The round trip runs without autograd: the scales computed from the
+        master tensor get no gradient, as in the reference."""
+        with torch.no_grad():
+            x_hat = self.fake_quant(x)
+        return ste(x, x_hat)
+
     def quantise(self, x: torch.Tensor) -> QuantisedTensor:
         x32 = x.float()
         sp_idx = sp_val = None
@@ -229,6 +246,9 @@ class TensorFormat:
         return y.to(_torch_dtype(qt.dtype))
 
     def element_bits(self) -> float:
+        if isinstance(self.element, UniformGrid):
+            raise ValueError("uniform grid bits are data-dependent (entropy); "
+                             "use measured_bits_per_param")
         return self.element.bits
 
     def bits_per_param(self, shape) -> float:
@@ -238,9 +258,50 @@ class TensorFormat:
             b += self.sparse.bits_per_param()
         return b
 
-    def measured_bits_per_param(self, x) -> float:
+    def measured_bits_per_param(self, x, practical_huffman: bool = False,
+                                model_hist: np.ndarray | None = None) -> float:
+        """Bits/param measured on data. For ``compressed`` formats the element
+        cost is the Shannon entropy of the actual code stream (or the Huffman
+        mean code length if ``practical_huffman``, or the cross-entropy
+        against ``model_hist``). The codes are made and counted on ``x``'s
+        device; only the histogram comes to the host."""
+        shape = tuple(x.shape)
         if self.compressed:
-            raise NotImplementedError(
-                "entropy-coded bits/param needs core/compress.py, which is "
-                "not ported yet")
-        return float(self.bits_per_param(tuple(x.shape)))
+            n_codes = (None if isinstance(self.element, UniformGrid)
+                       else self.element.n)
+            codes = self.quantise(x).codes.reshape(-1)[:int(np.prod(shape))]
+            hist = _code_histogram(codes, n_codes)
+            if practical_huffman:
+                eb = build_huffman(hist).mean_bits(hist)
+            elif model_hist is not None:
+                eb = cross_entropy_bits(hist, model_hist)
+            else:
+                eb = entropy_bits(hist)
+        else:
+            eb = self.element_bits()
+        b = eb + self.scaling.scale_bits_per_param(shape)
+        if self.sparse is not None:
+            b += self.sparse.bits_per_param()
+        return float(b)
+
+    def relative_rms_error(self, x: torch.Tensor,
+                           weights: torch.Tensor | None = None) -> torch.Tensor:
+        """R := RMS error / RMS of the data (§C); optionally Fisher-weighted."""
+        x32 = torch.as_tensor(x).float()
+        err = self.fake_quant(x32) - x32
+        if weights is None:
+            return torch.sqrt(torch.sum(err * err) / torch.sum(x32 * x32))
+        w = torch.as_tensor(weights, device=x32.device).float()
+        return torch.sqrt(torch.sum(w * err * err) / torch.sum(w * x32 * x32))
+
+
+def _code_histogram(codes: torch.Tensor, n_codes: int | None) -> np.ndarray:
+    """``compress.code_histogram`` of a code tensor, counted on its device:
+    the same int64 counts (a codebook's codes from 0; a grid's from its
+    least code)."""
+    codes = codes.reshape(-1).long()
+    if n_codes is None:
+        lo, hi = torch.aminmax(codes)
+        codes = codes - lo
+        n_codes = int(hi - lo) + 1
+    return torch.bincount(codes, minlength=n_codes).cpu().numpy()

@@ -1,1 +1,2 @@
-"""repro_torch.launch — drivers (``python -m repro_torch.launch.serve``)."""
+"""repro_torch.launch — entry points (``python -m repro_torch.launch.serve``,
+``python -m repro_torch.launch.train``)."""

@@ -7,9 +7,10 @@ packed, served to a batch of requests by the continuous-batching engine.
 Runs on the card by default; ``--device cpu`` runs the plain torch path.
 ``--kv-format auto --kv-budget-bytes N`` picks each cache group's format
 (f32, q8 or q4) by the Fisher sensitivity of its K/V rows, measured on a
-short dense decode, so that the serving cache fits N bytes. Loading a
-checkpoint (``--ckpt``) and the traffic replay front end come with later
-slices.
+short dense decode, so that the serving cache fits N bytes. ``--ckpt DIR``
+serves the parameters of a training checkpoint (``launch.train``'s, or the
+reference package's: the layout is the same) instead of random ones. The
+traffic replay front end comes with a later slice.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core import build_plan
-from repro_torch.models.api import get_family, resolve_device
+from repro_torch.models.api import get_family, resolve_device, torch_dtype
 from repro_torch.serve.engine import Request, ServeEngine
 
 
@@ -71,12 +72,19 @@ def main(argv=None):
                     help="cuda (default) or cpu (the plain torch path)")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights and prompts")
+    ap.add_argument("--ckpt", default=None,
+                    help="serve state['params'] of this training checkpoint "
+                         "(a step_* directory, or a checkpoint directory: "
+                         "its latest step) instead of random weights")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = configs.get_config(args.arch, args.variant)
     fam = get_family(cfg.family)
-    params = fam.init(cfg, seed=args.seed, device=device)
+    if args.ckpt:
+        params = _load_ckpt_params(args.ckpt, fam, cfg, device)
+    else:
+        params = fam.init(cfg, seed=args.seed, device=device)
     if args.kv_format == "auto":
         cfg = cfg.replace(kv_format=_auto_kv_format(cfg, fam, params, args))
     elif args.kv_format and args.kv_format != "f32":
@@ -143,6 +151,34 @@ def main(argv=None):
         print(f"  rid={g.rid} tokens={g.tokens}"
               + (f" FAILED: {g.fail_reason}" if g.failed else ""))
     return done
+
+
+def _load_ckpt_params(path, fam, cfg, device):
+    """``state["params"]`` of a training checkpoint on ``device``, each
+    tensor checked against the config's parameter specs."""
+    import os
+
+    from repro_torch.core.plan import flat_with_paths, map_with_paths
+    from repro_torch.train.checkpoint import (latest_checkpoint,
+                                              restore_checkpoint)
+    if not os.path.exists(os.path.join(path, "manifest.json")):
+        latest = latest_checkpoint(path)
+        if latest is None:
+            raise SystemExit(f"[serve] --ckpt: no checkpoint in {path!r}")
+        path = latest
+    state, meta = restore_checkpoint(path)
+    got = dict(flat_with_paths(state["params"]))
+    specs = fam.param_specs(cfg)
+    want = {n: tuple(s.shape) for n, s in flat_with_paths(specs)}
+    have = {n: tuple(x.shape) for n, x in got.items()}
+    if have != want:
+        diff = sorted(set(have.items()) ^ set(want.items()))
+        raise SystemExit(f"[serve] --ckpt {path}: parameters do not match "
+                         f"{cfg.name}: {diff[:4]}")
+    print(f"[serve] parameters of {path} (step {meta['step']})")
+    return map_with_paths(lambda n, s: got[n].to(device=device,
+                                                 dtype=torch_dtype(s.dtype)),
+                          specs)
 
 
 def _auto_kv_format(cfg, fam, params, args) -> str:

@@ -48,7 +48,8 @@ def test_no_reference_or_jax_imports(path):
 
 def test_port_imports_without_jax_loaded():
     code = ("import sys, repro_torch.serve.engine, repro_torch.launch.serve,"
-            " repro_torch.interop; "
+            " repro_torch.launch.train, repro_torch.train, repro_torch.data,"
+            " repro_torch.core, repro_torch.interop; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'ml_dtypes', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -103,6 +104,19 @@ def test_serve_cli_defaults_to_the_card(no_card):
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--variant", "smoke"])
+
+
+def test_train_cli_defaults_to_the_card(no_card, tmp_path):
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train import loop, optimizer
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_cli.main(["--variant", "smoke", "--steps", "1",
+                        "--ckpt-dir", str(tmp_path)])
+    assert not list(tmp_path.iterdir())         # nothing ran, nothing saved
+    cfg = configs.get_config("paper-100m", "smoke")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loop.train(cfg, loop.TrainConfig(steps=1), optimizer.AdamConfig(),
+                   lambda s: {})
 
 
 # ---------------------------------------------------------------------------

@@ -559,3 +559,97 @@ def test_dequant_matmul_t_at_teacher_forcing_m(cuda_device, M):
     assert dqmt.launches == before + 2
     assert y.shape == (M, V) and torch.equal(y, again)
     hold_on_card(y, dequant_matmul_t_ref(*args, 64, 4))
+
+
+# ---------------------------------------------------------------------------
+# Data-fitted codebooks: Lloyd-Max plans give every tensor its own
+# asymmetric, unevenly spaced codebook (16 points nibble-packed, more than
+# 16 at one byte a code), and one serve then uses many codebooks
+
+
+def lloyd_codebook(n_points, seed, device):
+    """A Lloyd-Max codebook of ``n_points`` fitted to skewed heavy-tailed
+    data scaled into [-1, 1]: asymmetric and unevenly spaced."""
+    from repro_torch.core.lloyd import lloyd_max
+    rng = np.random.default_rng(seed)
+    x = rng.standard_t(4, 100_000) + 0.3 * rng.gamma(2.0, 1.0, 100_000)
+    x = x / np.abs(x).max()
+    cb = lloyd_max(x, float(np.log2(n_points)), init="uniform", seed=seed)
+    assert cb.n == n_points
+    cps = np.asarray(cb.codepoints)
+    assert not np.allclose(cps, -cps[::-1])            # asymmetric
+    assert np.ptp(np.diff(cps)) > 0.1 * np.diff(cps).mean()   # uneven
+    return cb.torch_codepoints(device)
+
+
+def lloyd_matmul_args(M, K, N, n_points, seed, device, transposed=False):
+    """bf16 x, codes drawn over the codebook (nibble-packed along the
+    contraction when it has at most 16 points), bf16 block-64 scales."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bits = 4 if n_points <= 16 else 8
+    rows, cols = (N, K) if transposed else (K, N)
+    x = torch.randn(M, K, generator=gen, device=device).to(torch.bfloat16)
+    codes = torch.randint(0, n_points, (rows, cols), generator=gen,
+                          device=device, dtype=torch.int32).to(torch.uint8)
+    if bits == 4:
+        codes = pack_nibbles(codes).contiguous()
+    scales = (torch.rand(rows, cols // 64, generator=gen, device=device)
+              * 0.05 + 0.01).to(torch.bfloat16)
+    return (x, codes, scales, lloyd_codebook(n_points, seed, device)), bits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_points", [16, 23])
+@pytest.mark.parametrize("M", [1, 4, 32, 2048])
+@pytest.mark.parametrize("K,N", GEMMA3_PROJECTIONS)
+def test_dequant_matmul_lloyd_codebooks(cuda_device, n_points, M, K, N):
+    args, bits = lloyd_matmul_args(M, K, N, n_points, M + K + N, cuda_device)
+    y = ops.dequant_matmul(*args, block=64, bits=bits)
+    assert torch.equal(y, ops.dequant_matmul(*args, block=64, bits=bits))
+    hold_on_card(y, dequant_matmul_ref(*args, 64, bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_points", [16, 23])
+@pytest.mark.parametrize("M", [1, 4, 32])
+def test_dequant_matmul_t_lloyd_codebooks(cuda_device, n_points, M):
+    """gemma3-1b's tied 262144 x 1152 table with a data-fitted codebook."""
+    V, D = GEMMA3_TABLE
+    args, bits = lloyd_matmul_args(M, D, V, n_points, M, cuda_device,
+                                   transposed=True)
+    y = ops.dequant_matmul_t(*args, block=64, bits=bits)
+    assert y.shape == (M, V)
+    hold_on_card(y, dequant_matmul_t_ref(*args, 64, bits))
+
+
+@pytest.mark.cuda
+def test_table_cache_holds_many_codebooks(cuda_device):
+    """Twelve codebooks in turn, twice round (a Lloyd plan's tensors in one
+    serve): each call uses its own codebook's table, one cached entry per
+    codebook, equal to a fresh build; the entries go with their
+    codebooks."""
+    x, codes, scales, _ = lloyd_matmul_args(4, 1152, 1024, 16, 0,
+                                            cuda_device)[0]
+    before = len(dqm._tables)
+    cbs = [lloyd_codebook(16, 100 + i, cuda_device) for i in range(12)]
+    wants = [dequant_matmul_ref(x, codes, scales, cb, 64, 4) for cb in cbs]
+    for _ in range(2):
+        for cb, want in zip(cbs, wants):
+            hold_on_card(ops.dequant_matmul(x, codes, scales, cb, block=64,
+                                            bits=4), want)
+            xt = x[:, :1024].contiguous()     # codes read as (V, D)
+            hold_on_card(ops.dequant_matmul_t(xt, codes, scales, cb,
+                                              block=64, bits=4),
+                         dequant_matmul_t_ref(xt, codes, scales, cb, 64, 4))
+    assert len(dqm._tables) == before + 12
+    for cb in cbs:
+        _, version, bits, table = dqm._tables[id(cb)]
+        assert bits == 4 and version == cb._version
+        assert torch.equal(table, dqm.dequant_table(cb, 4))
+    outs = [ops.dequant_matmul(x, codes, scales, cb, block=64, bits=4)
+            for cb in cbs]
+    assert all(not torch.equal(outs[0], o) for o in outs[1:])
+    del cbs, outs, cb
+    import gc
+    gc.collect()
+    assert len(dqm._tables) == before
