@@ -76,8 +76,23 @@ Phases, each printed as JSON lines:
    through all four kernels; measured bits/param of trms:t4:C and a 4-bit
    trms:grid:C plan on the card against the CPU (within 1e-4), each below
    its fixed-length counterpart; one layer's wq grid codes through the
-   Huffman codec and back.
-8. the kernels summary line, then ``{"ok": true, "device": ...}``.
+   Huffman codec and back. The trained paper-100m parameters also go
+   through the entropy-coded checkpoint (``train.compressed_ckpt``: bytes
+   beside f32 and packed, bits per parameter, the host codec's seconds),
+   and the loaded tree is served packed, held to the CPU plain path.
+8. frontend (the serving front end) at gemma3-1b full, babsmax64:n4
+   packed, q8 cache, kv_len 1024, 4 slots: a seeded 32-request workload
+   (``serve.traffic``, a 128-token shared prefix on 60% of the requests)
+   replayed with prefix reuse twice (equal signatures), without reuse (the
+   greedy streams held to the reuse run's by the margin rule, one forked
+   request's prefix K/V rows to its recomputed rows by the K/V witness
+   rule), and with NaN logits injected on slot 1 (that request alone ends
+   failed); ``launch.serve --traffic-replay`` with q8 and q4 caches; the
+   fault drills (a corrupted scale refused at load, a step failure retried,
+   the dense fallback, a retry after the cache write, a stall caught by the
+   watchdog and the straggler monitor). Every replay outside the drill runs
+   without the dense fallback and must launch all four kernels.
+9. the kernels summary line, then ``{"ok": true, "device": ...}``.
 
 Every count of kernel launches is set to 0 just before a serve run and read
 just after it. Each profile phase also holds every ``decode_attention_quant``
@@ -1331,7 +1346,8 @@ def allocation_phase(dev, mods, tc_ptxas):
             "--arch", "gemma3-1b", "--variant", "full", "--quantise", SPEC,
             "--packed", "--kv-format", "auto", "--kv-budget-bytes",
             str(budget), "--kv-len", "1024", "--slots", "4", "--requests",
-            "4", "--max-new", "8", "--device", "cuda"])
+            "4", "--max-new", "8", "--no-dense-fallback", "--device",
+            "cuda"])
     torch.cuda.synchronize()
     launches = {name: m.launches for name, m in mods.items()}
     runs.append({"launches": launches})
@@ -1348,6 +1364,9 @@ def allocation_phase(dev, mods, tc_ptxas):
           launches["decode_attention_quant"] > 0,
           f"--kv-format auto served without the quantised KV path: "
           f"{launches}")
+    # 4 four-token prompts share one prefill step, then 7 decode steps
+    check_packed_steps(launches, out.getvalue(), steps=8, per_step=182,
+                       unembed=True, what="--kv-format auto")
     emit(phase="allocation", step="kv_format_auto", budget_bytes=budget,
          all_f32_bytes=f32_bytes, formats=fmts, launches=launches,
          tokens={g.rid: g.tokens for g in done})
@@ -1368,6 +1387,18 @@ def quiet(fn, *args):
     with contextlib.redirect_stdout(out):
         res = fn(*args)
     return res, out.getvalue()
+
+
+def check_packed_steps(launches, text, *, steps, per_step, unembed, what):
+    """A CLI serve run stayed on the packed path for every step: no
+    "degraded to dense" line, and ``dequant_matmul`` launched ``per_step``
+    times in each of its ``steps`` steps (the tied unembed's
+    ``dequant_matmul_t`` once a step where ``unembed``)."""
+    check("degraded to dense" not in text, f"{what} degraded to dense")
+    want = {"dequant_matmul": per_step * steps,
+            "dequant_matmul_t": steps if unembed else 0}
+    got = {k: launches[k] for k in want}
+    check(got == want, f"{what}: launches {got}, expected {want}")
 
 
 def served(mods, fn):
@@ -1405,8 +1436,10 @@ def resume_phase(dev, mods, root):
     after it: the f32 moments of the checkpoint requantise to other scales
     in some blocks, and the reference's 8-bit Adam makes loss spikes that
     amplify the difference (an element whose v flushes to 0 while its m,
-    on a grid without 0, does not, moves by about lr·m/eps). Then ``launch.serve --ckpt`` serves the checkpoint
-    packed. Returns the serve run's launches."""
+    on a grid without 0, does not, moves by about lr·m/eps). Then the f32
+    run's parameters go through the entropy-coded checkpoint
+    (``compressed_checkpoint``) and ``launch.serve --ckpt`` serves the
+    checkpoint packed. Returns the launches of both serve runs."""
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch import train as train_cli
     from repro_torch.train import checkpoint as ckpt
@@ -1477,6 +1510,8 @@ def resume_phase(dev, mods, root):
                        restore_s=restore_s)
             del back
             shutil.rmtree(root / "timed")
+            runs = [compressed_checkpoint(dev, mods, state_a["params"],
+                                          root)]
         else:
             shutil.rmtree(a)       # 1.5 GB a checkpoint: keep only f32_a
         shutil.rmtree(b)
@@ -1486,18 +1521,120 @@ def resume_phase(dev, mods, root):
     (done, text), launches = served(mods, lambda: quiet(serve_cli.main, [
         "--arch", "paper-100m", "--variant", "full", "--ckpt",
         str(root / "f32_a"), "--quantise", SPEC, "--packed", "--requests",
-        "4", "--max-new", "8", "--device", "cuda"]))
+        "4", "--max-new", "8", "--no-dense-fallback", "--device",
+        "cuda"]))
     check("step_00000020 (step 20)" in text, "serve --ckpt loaded "
           f"another checkpoint: {text[:300]}")
     check(len(done) == 4 and all(len(g.tokens) == 8 and not g.failed
                                  for g in done),
           "serve --ckpt: requests did not all finish")
-    check(launches["dequant_matmul"] > 0, f"serve --ckpt launched "
-          f"{launches}")
+    check_packed_steps(launches, text, steps=8, per_step=85,
+                       unembed=False, what="serve --ckpt")
     emit(phase="train", step="resume", arch="paper-100m", batch=[8, 256],
          serve_launches=launches, serve_s=time.monotonic() - t0,
          serve_tokens={g.rid: g.tokens for g in done}, **out)
-    return {"launches": launches}
+    return runs + [{"launches": launches}]
+
+
+def compressed_checkpoint(dev, mods, params, root):
+    """The entropy-coded checkpoint (``train.compressed_ckpt``, 4 bits of
+    entropy on a uniform grid, Huffman-coded on the host) of the trained
+    paper-100m full parameters: its bytes beside the f32 and the packed
+    babsmax64:n4 bytes, the bits per parameter, the codec's host seconds;
+    the loaded tree within the grid of the saved one, then served packed
+    (4 requests, no dense fallback) with the card's logits held to the CPU
+    plain path."""
+    from repro_torch import configs
+    from repro_torch.core import build_plan
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import compressed_ckpt
+    from repro_torch.core.element import uniform_grid
+    from repro_torch.core.plan import _flat_with_paths
+    n_params = sum(x.numel() for _, x in flat_with_paths(params))
+    fitted, fit = [], compressed_ckpt.fit_grid_delta
+
+    def recording_fit(x, **kw):       # the exact deltas, in save order
+        fitted.append(fit(x, **kw))
+        return fitted[-1]
+    compressed_ckpt.fit_grid_delta = recording_fit
+    t0 = time.monotonic()
+    try:
+        path = compressed_ckpt.save_compressed_params(
+            str(root / "compressed"), params, target_bits=4.0, step=20)
+    finally:
+        compressed_ckpt.fit_grid_delta = fit
+    save_s = time.monotonic() - t0
+    nbytes = os.path.getsize(os.path.join(path, "arrays.npz"))
+    with open(os.path.join(path, "manifest.json")) as f:
+        man = json.load(f)
+    t0 = time.monotonic()
+    loaded = compressed_ckpt.load_compressed_params(path, params)
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    # the codec is lossless: every quantised tensor comes back bitwise as
+    # its grid codes (rounded on the host, as the save rounds them) times
+    # the stored delta; the error against the trained weights is reported
+    npz = np.load(os.path.join(path, "arrays.npz"))
+    metas = {k[:-len(".__meta")]: npz[k] for k in npz.files
+             if k.endswith(".__meta")}
+    deltas = iter(fitted)
+    worst, worst_name, n_exact = 0.0, None, 0
+    for (name, a), (_, b) in zip(_flat_with_paths(params),
+                                 _flat_with_paths(loaded)):
+        check(a.shape == b.shape and b.device == a.device,
+              f"compressed checkpoint: {name} came back as {b.shape}")
+        meta = metas.get(name.replace("/", "_"))
+        if meta is None:
+            check(torch.equal(a.float(), b), f"raw tensor {name} changed")
+            continue
+        delta = next(deltas)
+        check(int(meta[1]) == int(delta * 2.0 ** 40),
+              f"compressed checkpoint: {name}'s stored delta")
+        a_host = a.detach().to("cpu", torch.float32)
+        want = (uniform_grid(delta).quantise(a_host).float()
+                * (int(meta[1]) / 2.0 ** 40))
+        check(torch.equal(want, b.cpu()), f"compressed checkpoint: {name} "
+              "does not decode to its grid codes")
+        n_exact += 1
+        err = float((a_host - want).abs().max() / a_host.pow(2).mean()
+                    .sqrt())
+        if err >= worst:
+            worst, worst_name = err, name
+    check(n_exact == len(metas) == len(fitted),
+          f"{n_exact} of {len(metas)} quantised tensors checked")
+    npz.close()
+    check(3.9 < man["achieved_bits_per_param"] < 4.1,
+          f"achieved {man['achieved_bits_per_param']} bits per parameter")
+    cfg = configs.get_config("paper-100m", "full")
+    plan = build_plan(loaded, SPEC)
+    eng = ServeEngine.from_quantised(cfg, plan.quantise(loaded), plan,
+                                     batch_slots=4, kv_len=256,
+                                     prefill_chunk=8, dense_fallback=False,
+                                     device=dev)
+    del loaded
+    wb = eng.weight_bytes()
+    reqs = short_requests(cfg.vocab, seed=6)
+    done, stats, records = serve(eng, mods, reqs, keep_logits=True)
+    check_run("paper-100m", done, stats, reqs)
+    check(not eng.degraded, "the compressed checkpoint's engine degraded")
+    t0 = time.monotonic()
+    rel, n = compare_with_cpu(eng, records)
+    emit(phase="train", step="compressed_checkpoint", arch="paper-100m",
+         params=n_params, compressed_bytes=nbytes, f32_bytes=4 * n_params,
+         packed_bytes=wb["total"],
+         achieved_bits_per_param=man["achieved_bits_per_param"],
+         file_bits_per_param=8 * nbytes / n_params, save_s=save_s,
+         load_s=load_s, codec_s=save_s + load_s,
+         exact_tensors=n_exact, max_err_over_rms=worst,
+         worst_tensor=worst_name,
+         serve_launches=stats["launches"],
+         decode_ms_per_step=stats["decode_ms_per_step"],
+         cpu_max_rel_logit_err=rel, cpu_margin_tokens=n,
+         cpu_compare_s=time.monotonic() - t0,
+         tokens={g.rid: g.tokens for g in done})
+    del eng, records
+    torch.cuda.empty_cache()
+    return {"launches": stats["launches"]}
 
 
 def held_batch(cfg, dev, seed):
@@ -1782,7 +1919,7 @@ def train_phase(dev, mods):
     root = Path(__file__).resolve().parent / "runs" / "chip_smoke_train"
     shutil.rmtree(root, ignore_errors=True)
     try:
-        runs = [resume_phase(dev, mods, root)]
+        runs = resume_phase(dev, mods, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     emit(phase="timing", resume_s=time.monotonic() - t_phase)
@@ -1795,6 +1932,422 @@ def train_phase(dev, mods):
     torch.cuda.empty_cache()
     emit(phase="timing", train_phase_s=time.monotonic() - t_phase)
     return runs + [qat_stats, lloyd_stats]
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the serving front end (scheduler, prefix forks, traffic replay,
+# fault drills) at gemma3-1b full
+
+
+FRONTEND_KW = dict(batch_slots=4, kv_len=1024, prefill_chunk=8)
+# the replayed workload: 32 requests at 0.5 a step, bodies of 16-96 tokens,
+# 8-32 new tokens, a 128-token shared "sys" prefix on 60% of them, and a
+# quarter of them at priority 2
+FRONTEND_TRAFFIC = dict(seed=0, n_requests=32, rate=0.5, prompt_len=(16, 96),
+                        output_len=(8, 32), prefixes=(("sys", 128, 0.6),),
+                        no_prefix_weight=0.4,
+                        priorities=((0.0, 0.75), (2.0, 0.25)))
+FRONTEND_NAN = ((1, 40, 3),)      # NaN logits on slot 1, steps 40-42
+PREFIX_LEN = 128
+
+
+def frontend_replay(cfg, packed, dev, mods, workload, use_prefix=True,
+                    probe_rid=None):
+    """``traffic.replay`` of ``workload`` on a fresh engine over the shared
+    packed weights (no dense fallback: a kernel failure raises), with every
+    kernel's launch count set to 0 just before it and read just after it.
+    Records each emitted token's logits row, which request held slot 1 at
+    each device step (pool prefill steps included, as the fault injector
+    counts them), the NaN injector's counter when the spec arms one, and,
+    for ``probe_rid``, the first ``PREFIX_LEN`` cache rows of its slot as
+    they stood when it emitted its first token."""
+    from repro_torch.serve import faults, traffic
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(cfg, packed, dense_fallback=False, device=dev,
+                      **FRONTEND_KW)
+    rows, probe, slot1, ctrs = {}, {}, [], []
+    emit_token, step = eng._emit_token, eng._step
+
+    def emit(i, g, row, finished):
+        rows.setdefault(g.rid, []).append(row.copy())
+        if g.rid == probe_rid and not g.tokens:
+            probe.update({k: v[:, i, :PREFIX_LEN].to("cpu", copy=True)
+                          for k, v in eng._state.items() if k != "pos"})
+        emit_token(i, g, row, finished)
+
+    def holder(p, s, b):
+        slot = eng._slots[1]
+        slot1.append(None if slot is None else slot.rid)
+        return step(p, s, b)
+
+    inject = faults.inject_nan_logits
+
+    def arm(*args, **kw):
+        ctrs.append(inject(*args, **kw))
+        return ctrs[-1]
+    eng._emit_token, eng._step = emit, holder
+    faults.inject_nan_logits = arm
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            report, launches = served(mods, lambda: traffic.replay(
+                eng, workload, use_prefix=use_prefix))
+    finally:
+        faults.inject_nan_logits = inject
+    check(not eng.degraded, "a front-end replay ended degraded")
+    check(all(n > 0 for n in launches.values()),
+          f"not every kernel ran in the replay: {launches}")
+    quarantined = sum("quarantined" in str(w.message) for w in caught)
+    return dict(report=report, rows=rows, probe=probe, slot1=slot1,
+                ctr=ctrs[0] if ctrs else None, launches=launches,
+                quarantine_warnings=quarantined)
+
+
+def timed_replay(cfg, packed, dev, mods, workload, use_prefix=True):
+    """``traffic.replay`` of ``workload`` on a fresh engine with nothing
+    recorded (no logits rows, no slot record, no cache probe): the front
+    end's latency and goodput as a caller of ``replay`` sees them. No dense
+    fallback; every kernel must launch."""
+    from repro_torch.serve import traffic
+    from repro_torch.serve.engine import ServeEngine
+    eng = ServeEngine(cfg, packed, dense_fallback=False, device=dev,
+                      **FRONTEND_KW)
+    report, launches = served(mods, lambda: traffic.replay(
+        eng, workload, use_prefix=use_prefix))
+    check(not eng.degraded, "a front-end replay ended degraded")
+    check(all(n > 0 for n in launches.values()),
+          f"not every kernel ran in the replay: {launches}")
+    return dict(report=report, launches=launches)
+
+
+def replay_metrics(run):
+    return dict(run["report"].metrics, launches=run["launches"])
+
+
+def hold_streams(a, b, what):
+    """Two replays' greedy streams under the margin rule: request by
+    request, each emitted token's logits held by ``hold_logits`` for as
+    long as both streams agree (a token that differs where ``hold_logits``
+    passed had a low margin, and ends the compare of that request)."""
+    ta, tb = a["report"].tokens, b["report"].tokens
+    check(sorted(ta) == sorted(tb), f"{what}: different requests")
+    worst, n_margin, compared, diverged = 0.0, 0, 0, []
+    for rid in sorted(ta):
+        for j, (x, y) in enumerate(zip(a["rows"].get(rid, []),
+                                       b["rows"].get(rid, []))):
+            rel, margin = hold_logits(x, y, f"{what}, rid {rid} token {j}")
+            worst = max(worst, rel)
+            n_margin += margin
+            compared += 1
+            if ta[rid][j] != tb[rid][j]:
+                diverged.append([rid, j])
+                break
+    check(n_margin > 0, f"{what}: no high-margin token compared")
+    return dict(max_rel_logit_err=worst, margin_tokens=n_margin,
+                compared_tokens=compared,
+                identical_streams=sum(ta[r] == tb[r] for r in ta),
+                requests=len(ta), diverged_at=diverged)
+
+
+def hold_prefix_rows(forked, recomputed):
+    """The prefix's K/V rows of one request in its slot, forked from the
+    pool against recomputed in place: counts of equal codes and the K/V
+    witness rule (``hold_kv_witness``) on the differing ones."""
+    stats = dict(codes=0, differ=0, max_codepoints=0, max_scale_rel=0.0)
+    check(forked and sorted(forked) == sorted(recomputed),
+          "no prefix rows recorded")
+    for k in sorted(forked):
+        a, b = forked[k], recomputed[k]
+        if a.dtype == torch.uint8:
+            step = (a.int() - b.int()).abs()
+            stats["codes"] += step.numel()
+            stats["differ"] += int((step > 0).sum())
+            stats["max_codepoints"] = max(stats["max_codepoints"],
+                                          int(step.max()))
+        else:
+            rel = (a - b).abs() / torch.where(b == 0, torch.ones_like(b), b)
+            stats["max_scale_rel"] = max(stats["max_scale_rel"],
+                                         float(rel.abs().max()))
+    out = hold_kv_witness(stats)
+    out["bitwise_equal_codes"] = stats["codes"] - stats["differ"]
+    out["bitwise_equal_scales"] = sum(
+        int((forked[k] == recomputed[k]).sum()) for k in forked
+        if forked[k].dtype != torch.uint8)
+    out["scales"] = sum(forked[k].numel() for k in forked
+                        if forked[k].dtype != torch.uint8)
+    return out
+
+
+def fail_after_write(eng, steps):
+    """Raise from the device step at each index in ``steps`` *after* the
+    inner step ran, so its in-place cache writes have landed."""
+    inner = eng._step
+    ctr = {"step": 0, "raised": 0}
+
+    def wrapped(p, s, b):
+        out = inner(p, s, b)
+        ctr["step"] += 1
+        if ctr["step"] - 1 in steps:
+            ctr["raised"] += 1
+            raise RuntimeError(f"injected failure after step "
+                               f"{ctr['step'] - 1}")
+        return out
+    eng._step = wrapped
+    return ctr
+
+
+def drill(cfg, qparams, plan, packed, dev, mods):
+    """The fault drills at gemma3-1b full: a corrupted scale refused at
+    load naming the tensor; a step failure absorbed by a retry; the same
+    failure without a retry degrading the engine to dense; a failure after
+    the step wrote the cache, retried; a stalled step caught by the
+    watchdog and the straggler monitor, the partials resumed."""
+    from repro_torch.core import IntegrityError
+    from repro_torch.serve import faults
+    from repro_torch.serve.engine import Request, ServeEngine
+    out = {}
+    tensor = faults.packed_paths(qparams)[0]
+    try:
+        ServeEngine.from_quantised(cfg, faults.corrupt_scales(
+            qparams, tensor), plan, device=dev, **FRONTEND_KW)
+        check(False, "a corrupted scale was not refused")
+    except IntegrityError as e:
+        check(tensor in str(e) and "scales" in str(e),
+              f"IntegrityError does not name {tensor}: {e}")
+        out["corrupt_scales"] = dict(tensor=tensor, error=str(e))
+    torch.cuda.empty_cache()
+    reqs = short_requests(cfg.vocab, seed=5)
+
+    def run(inject=None, **kw):
+        eng = ServeEngine(cfg, packed, device=dev, **{**FRONTEND_KW, **kw})
+        for rid, (p, n) in enumerate(reqs):
+            eng.submit(Request(prompt=p, max_new_tokens=n, rid=rid))
+        ctr = inject(eng) if inject else None
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            done, launches = served(mods, eng.run)
+        toks = {g.rid: g.tokens for g in done}
+        check(len(done) == 4 and all(g.done for g in done) and
+              sorted(len(t) for t in toks.values()) ==
+              sorted(n for _, n in reqs),
+              f"drill requests did not finish: {sorted(toks.items())}")
+        return eng, toks, ctr, launches, [str(w.message) for w in caught]
+    eng, clean, _, launches, _ = run(dense_fallback=False)
+    steps = eng.steps_total
+    check(all(n > 0 for n in launches.values()), f"clean run: {launches}")
+
+    eng, toks, ctr, launches, warns = run(
+        lambda e: faults.inject_step_failures(e, {3}), step_retries=2)
+    check(ctr["raised"] == 1 and not eng.degraded and toks == clean,
+          f"retried step failure: {ctr}, degraded {eng.degraded}, tokens "
+          f"equal {toks == clean}")
+    out["retry"] = dict(raised=ctr["raised"], degraded=eng.degraded,
+                        tokens_equal_clean=toks == clean, launches=launches)
+
+    eng, toks, ctr, launches, warns = run(
+        lambda e: faults.inject_step_failures(e, {3}), step_retries=1,
+        dense_fallback=True)
+    degrade_warned = any("degraded mode" in w for w in warns)
+    check(ctr["raised"] == 1 and eng.degraded and degrade_warned,
+          f"unretried failure did not degrade: {ctr}, {warns}")
+    check(not eng._has_packed(), "the degraded engine kept packed weights")
+    per = LAUNCHES_PER_STEP["gemma3-1b"]
+    check(launches["dequant_matmul"] == 3 * per["dequant_matmul"] and
+          launches["dequant_matmul_t"] == 3 * per["dequant_matmul_t"],
+          f"steps after the degrade launched packed matmuls: {launches}")
+    check(eng.steps_total == steps, f"degraded run took {eng.steps_total} "
+          f"steps, the clean run {steps}")
+    out["dense_fallback"] = dict(
+        raised=ctr["raised"], degraded=True, runtime_warning=degrade_warned,
+        launches=launches, steps=eng.steps_total,
+        packed_matmul_steps=launches["dequant_matmul"]
+        // per["dequant_matmul"],
+        tokens_equal_clean=sum(toks[r] == clean[r] for r in clean))
+    del eng
+    torch.cuda.empty_cache()
+
+    eng, toks, ctr, launches, warns = run(
+        lambda e: fail_after_write(e, {0, 3, 9}), step_retries=2,
+        dense_fallback=False)
+    check(ctr["raised"] == 3 and toks == clean, f"retry after the cache "
+          f"write: {ctr}, tokens equal {toks == clean}")
+    out["retry_after_write"] = dict(raised=ctr["raised"],
+                                    tokens_equal_clean=True,
+                                    launches=launches)
+
+    eng = ServeEngine(cfg, packed, dense_fallback=False, device=dev,
+                      **FRONTEND_KW)
+    for rid, (p, n) in enumerate(reqs):
+        eng.submit(Request(prompt=p, max_new_tokens=n, rid=rid))
+    inner = eng._step
+    ctr = faults.inject_slow_steps(eng, {10}, delay_s=3.0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        partial = eng.run(deadline_s=2.0)
+    watchdog = any("watchdog" in str(w.message) for w in caught)
+    check(ctr["slowed"] == 1 and watchdog and eng.straggler.flagged >= 1
+          and max(eng.straggler._times) >= 3.0,
+          f"the stall went unnoticed: {ctr}, watchdog {watchdog}, flagged "
+          f"{eng.straggler.flagged}")
+    check(partial and all(not g.done for g in partial),
+          "the watchdog returned no partials")
+    n_partial = len(partial)
+    eng._step = inner
+    done = eng.run()
+    toks = {g.rid: g.tokens for g in done}
+    check(toks == clean, "resumed partials differ from the clean run")
+    out["stall"] = dict(slowed=ctr["slowed"], watchdog=watchdog,
+                        straggler_flagged=eng.straggler.flagged,
+                        stall_s=max(eng.straggler._times),
+                        partials=n_partial, resumed_equal_clean=True)
+    return out
+
+
+def frontend_phase(dev, mods):
+    """The serving front end at gemma3-1b full (babsmax64:n4 packed, seeded
+    weights, q8 KV cache, kv_len 1024, 4 slots, prefill chunk 8): the
+    ``FRONTEND_TRAFFIC`` workload replayed with prefix reuse twice
+    (signatures equal bit for bit), without reuse (no fork, more prefill
+    slot-steps, greedy streams held to the reuse run's by the margin rule,
+    one forked request's prefix K/V rows held to the recomputed ones by the
+    K/V witness rule) and with ``FRONTEND_NAN`` (the request in slot 1 then
+    ends failed, every other completes); the reuse, no-reuse and reuse
+    replays again with nothing recorded, for latency and goodput;
+    ``launch.serve --traffic-replay``
+    with q8 and q4 caches; the fault drills. Returns the launches of every
+    run."""
+    from repro_torch import configs
+    from repro_torch.core import build_plan
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import transformer
+    from repro_torch.serve import traffic
+    from repro_torch.serve.engine import ServeEngine
+    t_phase = time.monotonic()
+    cfg = configs.get_config("gemma3-1b", "full").replace(kv_format="q8")
+    qparams = transformer.init(cfg, seed=0, device=dev)
+    plan = build_plan(qparams, SPEC)
+    quantise_leaf_by_leaf(plan, qparams)
+    packed = ServeEngine.from_quantised(cfg, qparams, plan, device=dev,
+                                        **FRONTEND_KW).params
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t_phase
+    spec = traffic.TrafficSpec(vocab=cfg.vocab, **FRONTEND_TRAFFIC)
+    wl = traffic.generate(spec)
+    probe = next(a.rid for a in wl.arrivals if a.prefix is not None)
+    runs = []
+
+    reuse = frontend_replay(cfg, packed, dev, mods, wl, probe_rid=probe)
+    again = frontend_replay(cfg, packed, dev, mods, wl)
+    sig = reuse["report"].deterministic_signature()
+    check(sig == again["report"].deterministic_signature(),
+          "two reuse replays of one spec differ on the card")
+    m = reuse["report"].metrics
+    check(m["completed"] == m["n_requests"] and m["forks"] > 0,
+          f"reuse replay: {m}")
+    emit(phase="frontend", step="replay_reuse", arch="gemma3-1b",
+         kv_format="q8", spec=dataclasses.asdict(spec), setup_s=setup_s,
+         signatures_equal=True, **replay_metrics(reuse),
+         repeat=replay_metrics(again))
+    runs += [reuse, again]
+    del again
+
+    plain = frontend_replay(cfg, packed, dev, mods, wl, use_prefix=False,
+                            probe_rid=probe)
+    mp = plain["report"].metrics
+    check(mp["forks"] == 0 and mp["completed"] == mp["n_requests"] and
+          mp["total_prefill_slot_steps"] > m["total_prefill_slot_steps"],
+          f"no-reuse replay: {mp}")
+    streams = hold_streams(reuse, plain, "reuse vs no reuse")
+    rows = hold_prefix_rows(reuse["probe"], plain["probe"])
+    emit(phase="frontend", step="replay_no_reuse", arch="gemma3-1b",
+         kv_format="q8", **replay_metrics(plain), margin_rule=streams,
+         prefix_rows=dict(rows, rid=probe, positions=PREFIX_LEN))
+    runs.append(plain)
+    plain_sig = plain["report"].deterministic_signature()
+    del reuse, plain
+
+    faulted = frontend_replay(cfg, packed, dev, mods, traffic.generate(
+        dataclasses.replace(spec, fault_nan=FRONTEND_NAN)))
+    mf = faulted["report"].metrics
+    outcomes = faulted["report"].outcomes
+    slot, at, n = FRONTEND_NAN[0]
+    window = {r for r in faulted["slot1"][at:at + n] if r is not None}
+    failed = {r for r, o in outcomes.items() if o == "failed"}
+    check(faulted["ctr"]["injected"] == n and failed and failed <= window
+          and all(o == "done" for r, o in outcomes.items()
+                  if r not in failed),
+          f"NaN replay: injected {faulted['ctr']}, failed {failed}, slot "
+          f"{slot} held {window} in the window, outcomes {outcomes}")
+    clean = sig["tokens"]
+    check(all(faulted["report"].tokens[r] == clean[r][:len(
+        faulted["report"].tokens[r])] for r in failed),
+          "a failed request's partial tokens are not the clean replay's")
+    emit(phase="frontend", step="replay_fault_nan", arch="gemma3-1b",
+         kv_format="q8", fault_nan=FRONTEND_NAN, injected=faulted["ctr"],
+         failed_tokens={r: len(faulted["report"].tokens[r])
+                        for r in failed},
+         slot1_in_window=sorted(window),
+         quarantine_warnings=faulted["quarantine_warnings"],
+         **replay_metrics(faulted))
+    runs.append(faulted)
+    del faulted
+
+    # the latency and goodput of record: replays with nothing recorded,
+    # reuse and no reuse alternated, each signature equal to its
+    # instrumented twin's
+    for name, use in (("reuse", True), ("no_reuse", False),
+                      ("reuse_again", True)):
+        timed = timed_replay(cfg, packed, dev, mods, wl, use_prefix=use)
+        check(timed["report"].deterministic_signature() ==
+              (sig if use else plain_sig),
+              f"the uninstrumented {name} replay differs from its "
+              "instrumented twin")
+        emit(phase="frontend", step="replay_timed", run=name,
+             arch="gemma3-1b", kv_format="q8", signature_equal=True,
+             **replay_metrics(timed))
+        runs.append(timed)
+        del timed
+    emit(phase="timing", frontend_replays_s=time.monotonic() - t_phase)
+
+    for kv in ("q8", "q4"):
+        t0 = time.monotonic()
+        (report, text), launches = served(mods, lambda: quiet(
+            serve_cli.main, [
+                "--arch", "gemma3-1b", "--variant", "full", "--quantise",
+                SPEC, "--packed", "--kv-format", kv, "--kv-len", "1024",
+                "--slots", "4", "--requests", "32", "--traffic-replay", "0",
+                "--prefix", "128", "--no-dense-fallback", "--device",
+                "cuda"]))
+        mc = report.metrics
+        check(mc["completed"] == 32 and mc["forks"] > 0 and
+              "TTFT p50/p99" in text and "prefix reuse:" in text and
+              not report.scheduler.engine.degraded and
+              all(v > 0 for v in launches.values()),
+              f"serve --traffic-replay --kv-format {kv}: {mc}, {launches}, "
+              f"{text[-600:]}")
+        emit(phase="frontend", step="cli", kv_format=kv,
+             s=time.monotonic() - t0, launches=launches,
+             report=[ln for ln in text.splitlines()
+                     if ln.startswith("[serve]")][-5:],
+             **{k: mc[k] for k in ("steps_total", "forks",
+                                   "prefill_slot_steps", "pool_prefill_steps",
+                                   "goodput_tok_s", "ttft_p50_s",
+                                   "ttft_p99_s")})
+        runs.append({"launches": launches})
+        del report
+        torch.cuda.empty_cache()
+    emit(phase="timing", frontend_cli_s=time.monotonic() - t_phase)
+
+    t0 = time.monotonic()
+    drills = drill(cfg, qparams, plan, packed, dev, mods)
+    emit(phase="frontend", step="drill", arch="gemma3-1b", kv_format="q8",
+         s=time.monotonic() - t0, **drills)
+    runs += [drills[k] for k in ("retry", "dense_fallback",
+                                 "retry_after_write")]
+    del qparams, packed
+    torch.cuda.empty_cache()
+    emit(phase="timing", frontend_phase_s=time.monotonic() - t_phase)
+    return [{"launches": r["launches"]} for r in runs]
 
 
 def device_line():
@@ -2022,8 +2575,11 @@ def main() -> int:
     emit(phase="timing", allocation_end_s=time.monotonic() - t_start)
     train_runs = train_phase(dev, mods)
     emit(phase="timing", train_end_s=time.monotonic() - t_start)
+    frontend_runs = frontend_phase(dev, mods)
+    emit(phase="timing", frontend_end_s=time.monotonic() - t_start)
 
-    line = summary(rows, [paper, deepseek, *gemma, *alloc_runs, *train_runs])
+    line = summary(rows, [paper, deepseek, *gemma, *alloc_runs, *train_runs,
+                          *frontend_runs])
     emit(phase="timing", total_s=time.monotonic() - t_start)
     emit(kernels=line)
     emit(ok=True, device={"platform": "gpu",

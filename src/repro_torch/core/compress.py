@@ -2,8 +2,10 @@
 accounting, and a practical Huffman codec (host-side) that approaches it.
 Numpy and pure Python, carried over from the reference's
 ``repro/core/compress.py``: histograms, entropies, Huffman code lengths,
-canonical codes and the encoded bytes are the same (the encoder's
-accumulator is trimmed as it writes, so its time is linear in the stream).
+canonical codes, the encoded bytes and the decoded symbols are the same
+(the encoder is numpy; the decoder reads codes through a table, chaining
+only the symbols' positions in Python: both are linear in the stream, where
+the reference's encoder is quadratic).
 
 The paper's result: under an *entropy* constraint the RMS-optimal quantiser
 is a uniform grid, and per-element Huffman coding comes within a few % of the
@@ -18,6 +20,9 @@ from dataclasses import dataclass
 from typing import Dict, Tuple
 
 import numpy as np
+
+_TABLE_BITS = 20          # decode: codes up to this long take one lookup
+_CHUNK_BITS = 1 << 20     # decode: stream bits read per numpy pass
 
 
 # ---------------------------------------------------------------------------
@@ -80,49 +85,93 @@ class HuffmanCode:
         return float(sum(hist[s] * l for s, l in self.lengths.items()) / total)
 
     def encode(self, symbols: np.ndarray) -> Tuple[bytes, int]:
-        """Encode to a bytestring; returns (payload, n_bits). The reference's
-        bytes; the accumulator keeps only the bits not yet written (the
-        reference's grows with the stream, so its encode is quadratic)."""
-        acc = bytearray()
-        cur, nbits = 0, 0
-        for s in np.asarray(symbols).reshape(-1).tolist():
-            v, l = self.codes[int(s)]
-            cur = (cur << l) | v
-            nbits += l
-            while nbits >= 8:
-                nbits -= 8
-                acc.append((cur >> nbits) & 0xFF)
-            cur &= (1 << nbits) - 1
-        total_bits = len(acc) * 8 + nbits
-        if nbits:
-            acc.append((cur << (8 - nbits)) & 0xFF)
-        return bytes(acc), total_bits
+        """Encode to a bytestring; returns (payload, n_bits): the
+        reference's bytes (codes MSB first, the last byte zero-padded),
+        built with numpy: each code lands in the one or two big-endian
+        64-bit words its bit offset spans (codes never overlap, so a word
+        is the sum of its parts)."""
+        sym = np.asarray(symbols).reshape(-1).astype(np.int64)
+        top = max(self.codes) + 1
+        val = np.zeros(top, np.uint64)
+        length = np.zeros(top, np.int64)
+        for s, (v, l) in self.codes.items():
+            val[s], length[s] = v, l
+        known = (sym >= 0) & (sym < top)
+        known[known] = length[sym[known]] > 0
+        if not known.all():
+            raise KeyError(int(sym[~known][0]))
+        lens, vals = length[sym], val[sym]
+        total = int(lens.sum())
+        start = np.cumsum(lens) - lens
+        word, end = start >> 6, (start & 63) + lens    # end <= 64 + len
+        spill = end > 64
+        head = np.where(spill, vals >> np.where(spill, end - 64, 0)
+                        .astype(np.uint64),
+                        vals << np.where(spill, 0, 64 - end)
+                        .astype(np.uint64))
+        words = np.zeros((total + 63) // 64 + 1, np.uint64)
+        if sym.size:
+            first = np.flatnonzero(np.diff(word, prepend=-1))
+            words[word[first]] = np.add.reduceat(head, first)
+            tail = vals[spill] << (128 - end[spill]).astype(np.uint64)
+            words[word[spill] + 1] += tail
+        return words.astype(">u8").tobytes()[:(total + 7) // 8], total
 
     def decode(self, payload: bytes, n_symbols: int) -> np.ndarray:
-        # build prefix tree
-        tree: dict = {}
+        """The reference's symbols. numpy reads the code starting at every
+        bit position of a chunk of the stream through a table of
+        ``_TABLE_BITS``-bit prefixes; the host chains the symbols' positions
+        and resolves the rare longer codes bit by bit."""
+        maxlen = max(l for _, l in self.codes.values())
+        K = min(maxlen, _TABLE_BITS)
+        tsym = np.zeros(1 << K, np.int64)
+        tlen = np.zeros(1 << K, np.int64)      # 0: a code longer than K
+        long_codes = {}
         for s, (v, l) in self.codes.items():
-            node = tree
-            for i in range(l - 1, -1, -1):
-                b = (v >> i) & 1
-                if i == 0:
-                    node[b] = s
-                else:
-                    node = node.setdefault(b, {})
-        out = np.empty(n_symbols, dtype=np.int64)
-        node, j = tree, 0
-        for byte in payload:
-            for i in range(7, -1, -1):
-                if j >= n_symbols:
-                    break
-                nxt = node[(byte >> i) & 1]
-                if isinstance(nxt, dict):
-                    node = nxt
-                else:
-                    out[j] = nxt
-                    j += 1
-                    node = tree
-        return out
+            if l <= K:
+                lo = v << (K - l)
+                tsym[lo:lo + (1 << (K - l))] = s
+                tlen[lo:lo + (1 << (K - l))] = l
+            else:
+                long_codes[(v, l)] = s
+        data = bytes(payload) + bytes(8)
+
+        def long_code(pos):
+            """(symbol, length) of the code longer than K at bit pos."""
+            w = int.from_bytes(data[pos >> 3:(pos >> 3) + 8], "big")
+            w = (w >> (64 - (pos & 7) - maxlen)) & ((1 << maxlen) - 1)
+            for l in range(K + 1, maxlen + 1):
+                s = long_codes.get((w >> (maxlen - l), l))
+                if s is not None:
+                    return s, l
+            raise KeyError(f"no code at bit {pos}")
+
+        # the 32 stream bits from each byte on: the K bits from bit position
+        # i are (w32[i >> 3] << (i & 7)) >> (32 - K)
+        b = np.frombuffer(data, np.uint8).astype(np.uint64)
+        w32 = (b[:-3] << 24) | (b[1:-2] << 16) | (b[2:-1] << 8) | b[3:]
+        n_bits = 8 * len(payload)
+        out, done, p = [], 0, 0
+        while done < n_symbols and p < n_bits:
+            i = np.arange(p, min(p + _CHUNK_BITS, n_bits), dtype=np.uint64)
+            win = (((w32[i >> 3] << (i & 7)) & 0xFFFFFFFF)
+                   >> np.uint64(32 - K)).astype(np.int64)
+            step = tlen[win].tolist()
+            q, n, at, fix = 0, len(step), [], {}
+            while q < n:
+                at.append(q)
+                l = step[q]
+                if not l:
+                    fix[len(at) - 1], l = long_code(p + q)
+                q += l
+            syms = tsym[win[at]]
+            for j, s in fix.items():
+                syms[j] = s
+            out.append(syms)
+            done += len(at)
+            p += q
+        got = np.concatenate(out) if out else np.zeros(0, np.int64)
+        return got[:n_symbols]
 
 
 def build_huffman(hist: np.ndarray) -> HuffmanCode:

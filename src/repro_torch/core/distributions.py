@@ -1,6 +1,6 @@
 """Distribution families used by the paper's optimal-format machinery.
 
-Implements Normal, Laplace and Student-t with the Table-4 statistics:
+Implements Normal, Laplace, Student-t and Uniform with the Table-4 statistics:
 
   * ``rms()``                 — sqrt(E[x^2])
   * ``expected_absmax(B)``    — E[max_i |x_i|] over a block of B iid samples
@@ -45,6 +45,9 @@ class Distribution:
 
     def ppf(self, q):
         return self._frozen().ppf(q)
+
+    def sample(self, rng: np.random.Generator, shape) -> np.ndarray:
+        return self._frozen().rvs(size=shape, random_state=rng).astype(np.float32)
 
     # -- Table 4 -------------------------------------------------------------
     def rms(self) -> float:
@@ -146,6 +149,25 @@ class StudentT(Distribution):
 
 
 @dataclass(frozen=True)
+class Uniform(Distribution):
+    """Uniform on [-scale, scale] — used for moment-matching INT formats."""
+
+    name = "uniform"
+
+    def _frozen(self):
+        return _st.uniform(loc=-self.scale, scale=2 * self.scale)
+
+    def rms(self) -> float:
+        return self.scale / math.sqrt(3.0)
+
+    def expected_absmax(self, block_size: int) -> float:
+        return self.scale * block_size / (block_size + 1.0)
+
+    def power(self, alpha: float) -> "Uniform":
+        return self
+
+
+@dataclass(frozen=True)
 class Truncated(Distribution):
     """``base`` truncated to [lo, hi] (cdf-remapped, as in the paper's code)."""
 
@@ -169,7 +191,24 @@ class Truncated(Distribution):
         c0, c1 = self._cbounds()
         return self.base.ppf(c0 + (c1 - c0) * np.asarray(q))
 
+    def sample(self, rng: np.random.Generator, shape) -> np.ndarray:
+        u = rng.uniform(size=shape)
+        return self.ppf(u).astype(np.float32)
+
     def rms(self) -> float:  # numeric; rarely needed
         xs = np.linspace(self.lo, self.hi, 20001)
         p = self.pdf(xs)
         return float(np.sqrt(np.trapezoid(xs**2 * p, xs)))
+
+
+def by_name(name: str, **kw) -> Distribution:
+    name = name.lower()
+    if name in ("normal", "gaussian", "n"):
+        return Normal(**kw)
+    if name in ("laplace", "l"):
+        return Laplace(**kw)
+    if name in ("student_t", "student-t", "t"):
+        return StudentT(**kw)
+    if name == "uniform":
+        return Uniform(**kw)
+    raise ValueError(f"unknown distribution {name!r}")

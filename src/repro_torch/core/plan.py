@@ -33,6 +33,28 @@ def flat_with_paths(tree):
     return [("", tree)]
 
 
+def path_str(path) -> str:
+    """A key path (a sequence of dict keys and list indices) in the
+    ``jax.tree_util.keystr`` form the reference writes: ``"['layers'][0]"``."""
+    return "".join(f"[{k!r}]" for k in path)
+
+
+def _flat_with_paths(tree, path=()):
+    """``[(path_str, leaf)]`` in the reference's flatten order: dict keys
+    sorted, lists and tuples by index, ``None`` an empty subtree; quantised
+    and packed tensors are leaves."""
+    if isinstance(tree, dict):
+        items = sorted(tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = list(enumerate(tree))
+    elif tree is None:
+        return []
+    else:
+        return [(path_str(path), tree)]
+    return [pair for k, v in items
+            for pair in _flat_with_paths(v, path + (k,))]
+
+
 def map_with_paths(fn, tree, prefix: str = ""):
     """Map ``fn(path, leaf)`` over a nested-dict tree, keeping its keys."""
     if isinstance(tree, dict):

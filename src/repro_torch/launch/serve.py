@@ -9,8 +9,14 @@ Runs on the card by default; ``--device cpu`` runs the plain torch path.
 (f32, q8 or q4) by the Fisher sensitivity of its K/V rows, measured on a
 short dense decode, so that the serving cache fits N bytes. ``--ckpt DIR``
 serves the parameters of a training checkpoint (``launch.train``'s, or the
-reference package's: the layout is the same) instead of random ones. The
-traffic replay front end comes with a later slice.
+reference package's: the layout is the same) instead of random ones.
+``--traffic-replay SEED`` serves a seeded replayable workload through the
+scheduler front end (Poisson arrivals at ``--rate`` a step, the
+``--priority`` mix, a shared ``--prefix`` whose KV is prefilled once and
+forked into each slot) and prints TTFT, per-token latency, goodput and queue
+depth; ``--step-retries`` and ``--dense-fallback`` (off by default;
+``--no-dense-fallback`` is the reference's spelling of the default) set the
+engine's robustness ladder.
 """
 from __future__ import annotations
 
@@ -65,9 +71,40 @@ def main(argv=None):
     ap.add_argument("--no-validate", action="store_true",
                     help="with --packed: skip the load-time integrity pass "
                          "over the packed checkpoint")
+    ap.add_argument("--step-retries", type=int, default=1,
+                    help="re-run a transiently failing device step up to "
+                         "this many total attempts before degrading "
+                         "(1 = no retry)")
+    ap.add_argument("--dense-fallback", default=False,
+                    action=argparse.BooleanOptionalAction,
+                    help="on a device-step failure that survives the "
+                         "retries, dequantise packed weights and continue "
+                         "in degraded mode (default off: the failure "
+                         "propagates, so a failing kernel is never served "
+                         "around)")
     ap.add_argument("--deadline-s", type=float, default=None,
                     help="wall-clock watchdog for the whole run(): on "
                          "expiry, return resumable partial generations")
+    ap.add_argument("--traffic-replay", type=int, default=None,
+                    metavar="SEED",
+                    help="serve a seeded replayable workload through the "
+                         "scheduler front end (Poisson arrivals, priority/"
+                         "aging admission, shared-prefix KV reuse) and "
+                         "print p50/p99 TTFT + per-token latency and "
+                         "goodput at exit; --requests sets the workload "
+                         "size")
+    ap.add_argument("--rate", type=float, default=0.5,
+                    help="with --traffic-replay: mean arrivals per engine "
+                         "step of the Poisson process")
+    ap.add_argument("--priority", default="0:3,1:1", metavar="P:W,...",
+                    help="with --traffic-replay: priority mix as "
+                         "priority:weight pairs (higher priority admits "
+                         "sooner; an aging term prevents starvation)")
+    ap.add_argument("--prefix", type=int, default=8, metavar="LEN",
+                    help="with --traffic-replay: shared prompt-prefix "
+                         "length — requests declaring it fork pooled KV "
+                         "instead of re-prefilling; 0 disables prefix "
+                         "reuse")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain torch path)")
     ap.add_argument("--seed", type=int, default=0,
@@ -92,7 +129,9 @@ def main(argv=None):
     kw = dict(batch_slots=args.slots, kv_len=args.kv_len,
               prefill_chunk=args.prefill_chunk,
               strict_admission=not args.relaxed_admission,
-              windowed_cache=not args.uniform_cache, device=device)
+              windowed_cache=not args.uniform_cache,
+              step_retries=args.step_retries,
+              dense_fallback=args.dense_fallback, device=device)
     if args.quantise:
         plan = build_plan(params, args.quantise)
         bits = plan.bits_per_param(params)
@@ -130,6 +169,8 @@ def main(argv=None):
         print(f"[serve]   group {i} [{g['format']}, window {g['window']}] "
               f"{g['n_layers']} layer(s) x {g['length']} slots: "
               f"{g['bytes']:,} bytes")
+    if args.traffic_replay is not None:
+        return _traffic_replay(eng, args)
     rng = np.random.default_rng(args.seed)
     for rid in range(args.requests):
         prompt = rng.integers(0, cfg.vocab, size=4).tolist()
@@ -146,7 +187,8 @@ def main(argv=None):
     print(f"[serve] {len(done)} requests, {n_tok} tokens in {dt:.2f}s "
           f"({n_tok / max(dt, 1e-9):.1f} tok/s)"
           + (f", {n_trunc} truncated at the KV budget" if n_trunc else "")
-          + (f", {n_failed} quarantined" if n_failed else ""))
+          + (f", {n_failed} quarantined" if n_failed else "")
+          + (", degraded to dense" if eng.degraded else ""))
     for g in done[:4]:
         print(f"  rid={g.rid} tokens={g.tokens}"
               + (f" FAILED: {g.fail_reason}" if g.failed else ""))
@@ -214,6 +256,51 @@ def _auto_kv_format(cfg, fam, params, args) -> str:
     print(f"[serve] kv auto allocation under {args.kv_budget_bytes:,} B: "
           f"{','.join(fmts)} (~{total:,.0f} B resident KV)")
     return ",".join(fmts)
+
+
+def _traffic_replay(eng, args):
+    """--traffic-replay mode: seeded workload through the scheduler front
+    end, latency/goodput report at exit. Returns the ``TrafficReport``."""
+    from repro_torch.serve import traffic
+
+    try:
+        priorities = tuple(
+            (float(p), float(w)) for p, w in
+            (pair.split(":") for pair in args.priority.split(",")))
+    except ValueError:
+        raise SystemExit(f"[serve] --priority {args.priority!r}: expected "
+                         "priority:weight pairs like 0:3,2:1")
+    use_prefix = args.prefix > 0
+    spec = traffic.TrafficSpec(
+        seed=args.traffic_replay, n_requests=args.requests, rate=args.rate,
+        vocab=eng.cfg.vocab, priorities=priorities,
+        prefixes=(("sys", args.prefix, 0.6),) if use_prefix else (),
+        no_prefix_weight=0.4 if use_prefix else 1.0)
+    wl = traffic.generate(spec)
+    print(f"[serve] traffic replay: seed={spec.seed} "
+          f"{spec.n_requests} requests, rate={spec.rate}/step, "
+          f"priorities={args.priority}"
+          + (f", shared prefix of {args.prefix} tokens" if use_prefix
+             else ", prefix reuse off"))
+    report = traffic.replay(eng, wl, use_prefix=use_prefix,
+                            deadline_s=args.deadline_s)
+    m = report.metrics
+    print(f"[serve] {m['completed']}/{m['n_requests']} completed "
+          f"({m['failed']} failed, {m['truncated']} truncated) in "
+          f"{m['wall_s']}s over {m['steps_total']} steps"
+          + (", degraded to dense" if eng.degraded else ""))
+    print(f"[serve] TTFT p50/p99 {m['ttft_p50_s']}/{m['ttft_p99_s']}s, "
+          f"per-token p50/p99 {m['per_token_p50_s']}/"
+          f"{m['per_token_p99_s']}s")
+    print(f"[serve] goodput {m['goodput_tok_s']} tok/s "
+          f"({m['good_tokens']} good tokens), queue depth "
+          f"mean/max {m['queue_depth_mean']}/{m['queue_depth_max']}")
+    if use_prefix:
+        print(f"[serve] prefix reuse: {m['forks']} forks reused "
+              f"{m['forked_tokens']} prefill tokens "
+              f"({m['prefill_slot_steps']} + {m['pool_prefill_steps']} "
+              "pool prefill slot-steps spent)")
+    return report
 
 
 if __name__ == "__main__":

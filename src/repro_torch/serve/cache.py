@@ -236,7 +236,17 @@ class CacheSpec:
 
     @property
     def state_keys(self) -> Tuple[str, ...]:
+        """Every decode-state key this geometry owns (codes + scales for
+        quantised groups): the rows a shared-prefix fork copies
+        (``serve.scheduler.PrefixPool``)."""
         return tuple(k for g in self.groups for k in g.group_state_keys)
+
+    def group_row_bytes(self, fmt: str) -> int:
+        """Bytes one (token, head) K+V row pair costs under ``fmt``,
+        including per-row scales for quantised formats."""
+        if fmt == "f32":
+            return 2 * self.head_dim * _itemsize(self.dtype)
+        return 2 * (self._code_width(fmt) + 4)  # uint8 codes + f32 scale
 
     def cache_bytes(self) -> dict:
         """Per-group breakdown, grouped total (``kv``) with its code/scale

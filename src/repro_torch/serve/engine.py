@@ -8,16 +8,33 @@ decode-phase slots ride along with one valid token each), and the in-step
 ``batch["reset"]`` wipe of a reused slot's KV rows. Packed weights
 (``from_quantised``) keep codes + block scales resident on the device and
 every projection runs the fused ``dequant_matmul`` kernel; no dense copy of
-a packed tensor is ever made, and there is no dense fallback.
+a packed tensor is made unless the engine degrades (below).
 
-Robustness carried over from the reference: a slot whose logits go
-non-finite is quarantined alone (``Generation.failed``, state wiped through
-the reset protocol) while co-batched slots keep decoding;
-``Request.deadline_steps`` bounds a request's engine steps;
+Robustness carried over from the reference (drills in ``serve.faults``): a
+slot whose logits go non-finite is quarantined alone (``Generation.failed``,
+state wiped through the reset protocol) while co-batched slots keep
+decoding; ``Request.deadline_steps`` bounds a request's engine steps;
 ``run(deadline_s=...)`` is a wall-clock watchdog returning resumable
 partials; ``from_quantised(validate=True)`` integrity-checks the packed
-checkpoint. Step retries, the scheduler front end and its admission hooks
-come with later slices.
+checkpoint; a failed device step re-runs through
+``train.fault_tolerance.retry`` (``step_retries``), and, when the caller
+opts in (``dense_fallback=True``), one that survives the retries on packed
+weights dequantises every packed tensor once and serves on dense weights
+(``degrade_to_dense``). The fallback is off by default, unlike the
+reference's: on the card a kernel that fails to build or launch raises
+``RuntimeError``, and the engine must not hide it behind ``torch.matmul``. The
+cache writes of a step are in place, so a re-run step may find some layers'
+rows already written by the failed attempt: it writes the same rows at the
+same slots (the reset wipe and ring writes included), so the re-run is
+exact. ``straggler`` records every step's wall time.
+
+The front end (``serve.scheduler``) wires into ``admission_hook`` (called
+before every slot-fill pass, including the refill at the end of each
+``step_once``) and ``on_admit`` (called once a slot is seated, where it
+forks pooled shared-prefix KV into the slot). The device step is the
+instance attribute ``_step`` (the family's ``decode_step`` bound to the
+config), which the fault injectors wrap. Encoder-decoder admission
+(``_admit_cross``, ``Request.frames``) comes with the whisper family.
 
 The step runs under ``torch.inference_mode()``; each step copies the logits
 to the host (``.cpu()``), where tokens are sampled with numpy.
@@ -36,6 +53,7 @@ from repro_torch.core.plan import flat_with_paths, map_with_paths
 from repro_torch.core.tensor_format import PackedTensor
 from repro_torch.models.api import (ModelConfig, get_family, resolve_device,
                                     torch_dtype)
+from repro_torch.train.fault_tolerance import StragglerMonitor, retry
 
 
 def alloc_decode_state(fam, cfg: ModelConfig, batch_slots: int, kv_len: int,
@@ -108,13 +126,24 @@ class ServeEngine:
     early with ``Generation.truncated``. Kill-switches: ``windowed_cache=
     False`` allocates every group at the full length (the masked-full-cache
     baseline), ``quantised_cache=False`` drops ``cfg.kv_format`` so every
-    group stores dense rows."""
+    group stores dense rows.
+
+    Fault tolerance: ``step_retries`` total attempts of a failed device
+    step (1 = no retry); a failure that survives them on an engine holding
+    packed weights propagates unless the caller opts in to the one-time
+    dense fallback (``dense_fallback=True``; the reference's default, off
+    here so that a failing kernel is never served around): every
+    PackedTensor leaf is dequantised, one RuntimeWarning fires,
+    ``degraded`` turns True and serving continues."""
 
     def __init__(self, cfg: ModelConfig, params, batch_slots: int = 4,
                  kv_len: int = 256, prefill_chunk: int = 8,
                  strict_admission: bool = True, windowed_cache: bool = True,
+                 step_retries: int = 1, dense_fallback: bool = False,
                  quantised_cache: bool = True, device=None):
         self.device = resolve_device(device)
+        if step_retries < 1:
+            raise ValueError(f"step_retries must be >= 1, got {step_retries}")
         if not quantised_cache and cfg.kv_format:
             cfg = cfg.replace(kv_format="")
         self.windowed_cache = windowed_cache
@@ -129,8 +158,25 @@ class ServeEngine:
         self.kv_len = kv_len
         self.prefill_chunk = max(1, prefill_chunk)
         self.strict_admission = strict_admission
-        # engine step clock: device steps over the engine lifetime
+        self.step_retries = step_retries
+        self.dense_fallback = dense_fallback
+        self.degraded = False     # dense fallback engaged (degrade_to_dense)
+        # engine step clock: device steps over the engine lifetime, and the
+        # prefill share of it (prefill_slot_steps counts slot x step prefill
+        # work, the unit shared-prefix reuse saves)
         self.steps_total = 0
+        self.prefill_steps = 0
+        self.prefill_slot_steps = 0
+        # front-end hooks (serve.scheduler): admission_hook(engine) before
+        # every slot-fill pass, on_admit(engine, slot, request, generation)
+        # after a slot is seated
+        self.admission_hook = None
+        self.on_admit = None
+        self.straggler = StragglerMonitor()
+        # the device step; late-bound to self.fam so a replaced family (a
+        # recording wrapper) is honoured, and itself replaceable per
+        # instance (serve.faults wraps it)
+        self._step = lambda p, s, b: self.fam.decode_step(p, s, b, self.cfg)
         self._state = self._zero_state()
         self._slots: List[Optional[Generation]] = [None] * batch_slots
         self._queue: List[Request] = []
@@ -209,10 +255,14 @@ class ServeEngine:
 
     # ------------------------------------------------------------------- api
     def submit(self, req: Request):
-        """Queue a request after :meth:`validate_request`."""
+        """Queue a request after :meth:`validate_request`. A front end may
+        have stamped its submit time and step already (a replayed arrival);
+        otherwise they are now."""
         self.validate_request(req)
-        req._t_submit = time.monotonic()  # type: ignore[attr-defined]
-        req._submit_step = self.steps_total  # type: ignore[attr-defined]
+        if not hasattr(req, "_t_submit"):
+            req._t_submit = time.monotonic()  # type: ignore[attr-defined]
+        if not hasattr(req, "_submit_step"):
+            req._submit_step = self.steps_total  # type: ignore[attr-defined]
         self._queue.append(req)
 
     def validate_request(self, req: Request) -> None:
@@ -299,10 +349,11 @@ class ServeEngine:
         return finished
 
     def step_once(self, finished: List[Generation]) -> bool:
-        """One continuous-batching iteration: admit, run one device step
-        over the live slots, emit/quarantine per slot, then refill any slot
-        freed mid-wave. Returns False when there was nothing to run."""
-        self._fill_slots()
+        """One continuous-batching iteration: admit (front-end hook + slot
+        fill), run one device step over the live slots, emit/quarantine per
+        slot, then refill any slot freed mid-wave. Returns False when there
+        was nothing to run."""
+        self._admit()
         if all(s is None for s in self._slots):
             return False
         prefill_rows = [
@@ -329,11 +380,15 @@ class ServeEngine:
         if self._needs_reset.any():
             batch["reset"] = host_to_device(self._needs_reset, self.device)
             self._needs_reset[:] = False
+        ts = time.monotonic()
         with torch.inference_mode():
-            logits, self._state = self.fam.decode_step(
-                self.params, self._state, batch, self.cfg)
+            logits, self._state = self._execute_step(batch)
             logits = logits.cpu().numpy()
+        self.straggler.record(time.monotonic() - ts)
         self.steps_total += 1
+        if prefill_rows:
+            self.prefill_steps += 1
+            self.prefill_slot_steps += len(prefill_rows)
         for i, g in enumerate(self._slots):
             if g is None:
                 continue
@@ -356,8 +411,48 @@ class ServeEngine:
                     self._quarantine(
                         i, g, f"deadline_steps={dl} exceeded with "
                         f"{len(g.tokens)} token(s) generated", finished)
-        self._fill_slots()
+        self._admit()
         return True
+
+    # ------------------------------------------------------- fault tolerance
+    def _execute_step(self, batch):
+        """One device step with the robustness ladder around it: transient
+        failures re-run through ``retry`` (``step_retries`` attempts); a
+        failure that survives them on an engine still holding packed weights
+        degrades to dense once and re-runs on the dequantised params."""
+        call = lambda: self._step(self.params, self._state, batch)
+        try:
+            if self.step_retries > 1:
+                return retry(call, max_attempts=self.step_retries)
+            return call()
+        except (RuntimeError, ValueError, OSError) as e:
+            if not (self.dense_fallback and not self.degraded
+                    and self._has_packed()):
+                raise
+            self.degrade_to_dense(reason=f"device step failed: {e!r}")
+            return call()
+
+    def _has_packed(self) -> bool:
+        return any(isinstance(x, PackedTensor)
+                   for _, x in flat_with_paths(self.params))
+
+    def degrade_to_dense(self, reason: str = "operator request") -> None:
+        """Degraded-mode kill-switch: dequantise every PackedTensor leaf and
+        keep serving on dense weights (one RuntimeWarning; decode state and
+        live generations are untouched). Idempotent."""
+        if self.degraded:
+            return
+        self.degraded = True
+        n = sum(isinstance(x, PackedTensor)
+                for _, x in flat_with_paths(self.params))
+        with torch.inference_mode():
+            self.params = map_with_paths(
+                lambda _, x: x.dequantise() if isinstance(x, PackedTensor)
+                else x, self.params)
+        warnings.warn(
+            f"ServeEngine: degraded mode — {n} packed tensor(s) "
+            f"dequantised to dense, packed matmul path bypassed ({reason}); "
+            "the engine keeps serving", RuntimeWarning, stacklevel=2)
 
     def _quarantine(self, i: int, g: Generation, reason: str,
                     finished: List[Generation]) -> None:
@@ -375,6 +470,15 @@ class ServeEngine:
             stacklevel=3)
 
     # ------------------------------------------------------------- internals
+    def _admit(self):
+        """One admission pass: the front-end hook may release arrivals into
+        the queue, then queued requests are seated in free slots (through the
+        ``_fill_slots`` attribute, which admission-fault injectors
+        replace)."""
+        if self.admission_hook is not None:
+            self.admission_hook(self)
+        self._fill_slots()
+
     def _fill_slots(self):
         for i in range(self.B):
             if self._slots[i] is None and self._queue:
@@ -390,6 +494,10 @@ class ServeEngine:
                 self._slot_pos[i] = 0
                 self._slot_steps[i] = 0
                 self._needs_reset[i] = True
+                # a scheduler forks pooled prefix KV into the slot here (it
+                # may move _slot_pos past the prefix and clear the reset bit)
+                if self.on_admit is not None:
+                    self.on_admit(self, i, req, g)
 
     def _emit_token(self, i: int, g: Generation, logits_row: np.ndarray,
                     finished: List[Generation]):

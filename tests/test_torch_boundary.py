@@ -49,7 +49,9 @@ def test_no_reference_or_jax_imports(path):
 def test_port_imports_without_jax_loaded():
     code = ("import sys, repro_torch.serve.engine, repro_torch.launch.serve,"
             " repro_torch.launch.train, repro_torch.train, repro_torch.data,"
-            " repro_torch.core, repro_torch.interop; "
+            " repro_torch.core, repro_torch.interop,"
+            " repro_torch.serve.scheduler, repro_torch.serve.traffic,"
+            " repro_torch.serve.faults, repro_torch.train.compressed_ckpt; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'ml_dtypes', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -104,6 +106,13 @@ def test_serve_cli_defaults_to_the_card(no_card):
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--variant", "smoke"])
+
+
+def test_serve_cli_traffic_replay_defaults_to_the_card(no_card):
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--variant", "smoke", "--traffic-replay", "0",
+                    "--requests", "2"])
 
 
 def test_train_cli_defaults_to_the_card(no_card, tmp_path):

@@ -118,6 +118,39 @@ def test_huffman_single_symbol():
     np.testing.assert_array_equal(hc.decode(hc.encode(sym)[0], 17), sym)
 
 
+@pytest.mark.parametrize("table_bits", [4, 11, 20])
+def test_huffman_long_codes_bitwise(monkeypatch, table_bits):
+    """Fibonacci counts give codes up to 29 bits: those longer than the
+    decoder's table are resolved bit by bit; bytes and symbols stay the
+    reference's, whatever the table's width."""
+    counts = [1, 1]
+    while len(counts) < 30:
+        counts.append(counts[-1] + counts[-2])
+    hist = np.asarray(counts[::-1])
+    rng = np.random.default_rng(3)
+    sym = np.concatenate([rng.choice(len(hist), 20_000, p=hist / hist.sum()),
+                          np.arange(len(hist))])
+    rng.shuffle(sym)
+    hc, jhc = compress.build_huffman(hist), jcompress.build_huffman(hist)
+    assert max(hc.lengths.values()) == 29
+    payload, n_bits = hc.encode(sym)
+    assert (payload, n_bits) == jhc.encode(sym)
+    monkeypatch.setattr(compress, "_TABLE_BITS", table_bits)
+    monkeypatch.setattr(compress, "_CHUNK_BITS", 4096)
+    np.testing.assert_array_equal(hc.decode(payload, sym.size), sym)
+    np.testing.assert_array_equal(jhc.decode(payload, sym.size), sym)
+
+
+def test_huffman_unknown_symbol_and_empty_stream():
+    hc = compress.build_huffman(np.bincount([0, 1, 1, 3]))
+    with pytest.raises(KeyError):
+        hc.encode(np.asarray([0, 2]))
+    with pytest.raises(KeyError):
+        hc.encode(np.asarray([4]))
+    assert hc.encode(np.zeros(0, np.int64)) == (b"", 0)
+    assert hc.decode(b"", 0).shape == (0,)
+
+
 @settings(max_examples=20, deadline=None)
 @given(seed=st.integers(0, 10_000), p=st.floats(0.05, 0.9))
 def test_huffman_round_trip_any_stream(seed, p):
