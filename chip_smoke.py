@@ -17,9 +17,9 @@ Phases, each printed as JSON lines:
    least time the card could take:
    ``dequant_matmul`` at every projection shape of paper-100m, deepseek-7b
    and gemma3-1b (M = 1, 4, 32 at 4 bits, one 8-bit shape, one lead-dim
-   case), each called twice with bitwise-equal results, with its tile
-   width, K splits, registers and blocks per SM; ``dequant_matmul_t`` at
-   gemma3-1b's tied unembed (262144 x 1152, M = 1, 4, 32, and 8-bit), each
+   case; the MoE shapes of phase 9), each called twice with bitwise-equal
+   results, with its tile width, K splits, registers and blocks per SM;
+   ``dequant_matmul_t`` at gemma3-1b's tied unembed (262144 x 1152, M = 1, 4, 32, and 8-bit), each
    called twice with bitwise-equal results, with its registers, spills
    and blocks per SM; ``block_quant`` at hd 256 and 64, rows 4, 32 and
    256, q8 and q4, the single-tensor call and the paired k + v call
@@ -92,7 +92,22 @@ Phases, each printed as JSON lines:
    the dense fallback, a retry after the cache write, a stall caught by the
    watchdog and the straggler monitor). Every replay outside the drill runs
    without the dense fallback and must launch all four kernels.
-9. the kernels summary line, then ``{"ok": true, "device": ...}``.
+9. moe (MoE serving) at qwen2-moe-a2.7b full (24 layers, d 2048, 60
+   routed experts of 1408, top-4, 4 shared, vocab 151936, untied),
+   babsmax64:n4 packed, seeded weights drawn and packed one leaf at a time
+   (the f32 tree is 57.3 GB): 4 requests on a dense cache, then on a q8
+   cache, kv_len 256, chunk 8. Every step launches ``dequant_matmul`` 241
+   times, 72 of them over the expert stacks with the lead dim E = 60 (q8:
+   also 24 ``block_quant_kv`` and 24 ``decode_attention_quant``); resident
+   bytes against the shapes', peak device bytes, the dropped share of the
+   dispatches per step, the profiled device-busy share, and the prefill
+   step and first decode step held to the CPU plain path at full depth,
+   each MoE call routed as the card routed (a routing witness counts the
+   dispatches the CPU would have sent elsewhere). The kernel phase also
+   holds ``dequant_matmul`` with the lead dim at qwen2-moe's (E = 60) and
+   llama4-scout's (E = 16) expert shapes, M = 4, beside one ``torch.bmm``
+   on the dequantised bf16 stack, and at qwen2-moe's 2-D projections.
+10. the kernels summary line, then ``{"ok": true, "device": ...}``.
 
 Every count of kernel launches is set to 0 just before a serve run and read
 just after it. Each profile phase also holds every ``decode_attention_quant``
@@ -161,6 +176,27 @@ PROJECTIONS = {
                                               "w_gate+w_up"),
                   ((6912, 1152), 26, "w_down")],
 }
+MOE_ARCH = "qwen2-moe-a2.7b"
+# qwen2-moe-a2.7b's 2-D projections (timed at M = 4, the decode rows) and
+# the expert stacks of both MoE configs through the lead dim (M = 4, the
+# capacity of a decode or an 8-token prefill step of 4 slots)
+MOE_PROJECTIONS = [((2048, 2048), 96, "wq+wk+wv+wo"),
+                   ((2048, 5632), 48, "ws_gate+ws_up"),
+                   ((5632, 2048), 24, "ws_down"),
+                   ((2048, 151936), 1, "unembed")]
+EXPERT_CASES = [  # (model, E, K, N, launches per step, weights)
+    (MOE_ARCH, 60, 2048, 1408, 48, "we_gate+we_up"),
+    (MOE_ARCH, 60, 1408, 2048, 24, "we_down"),
+    ("llama4-scout-17b-a16e", 16, 5120, 8192, 96, "we_gate+we_up"),
+    ("llama4-scout-17b-a16e", 16, 8192, 5120, 48, "we_down"),
+]
+# the design's launch shape at qwen2-moe's expert stacks (M = 4): gate/up 22
+# column tiles of 64 x 60 experts, down 32 x 60 over 11 chunks of its
+# whole-K (1408) nibble tile; one K split each
+EXPERT_GEOMETRY = {(60, 2048, 1408): dict(vec=4, splits=1, blocks=1320,
+                                          chunks=16),
+                   (60, 1408, 2048): dict(vec=4, splits=1, blocks=1920,
+                                          chunks=11)}
 # launches per decode step of each kernel (the design's numbers): gemma3-1b
 # runs 7 projections per layer, the tied unembed once, block_quant once per
 # layer (k and v in one block_quant_kv launch) and decode_attention_quant
@@ -170,7 +206,12 @@ LAUNCHES_PER_STEP = {
     "deepseek-7b": {"dequant_matmul": 211},
     "gemma3-1b": {"dequant_matmul": 182, "dequant_matmul_t": 1,
                   "block_quant": 26, "decode_attention_quant": 26},
+    # 24 layers x (4 attention + 3 expert stacks + 3 shared) + the unembed
+    MOE_ARCH: {"dequant_matmul": 241},
+    MOE_ARCH + " q8": {"dequant_matmul": 241, "block_quant": 24,
+                       "decode_attention_quant": 24},
 }
+MOE_LEAD_LAUNCHES = 72            # of them with the expert lead dim E = 60
 # the device kernels of decode_attention.cu (profile phase: one a call)
 ATTN_DEVICE_KERNELS = ("attn_rows_kernel", "attn_mma_kernel")
 LAUNCH_RUN = 200                  # calls per launch-bound reading
@@ -184,6 +225,8 @@ WEIGHT_BYTES = {
                         scales=215_941_120, codebooks=576, dense=999_424),
     "gemma3-1b": dict(total=531_416_064, codes=499_875_840,
                       scales=31_242_240, codebooks=512, dense=297_472),
+    MOE_ARCH: dict(total=7_615_734_528, codes=7_156_269_056,
+                   scales=447_266_816, codebooks=768, dense=12_197_888),
 }
 
 
@@ -315,13 +358,14 @@ def matmul_case(mods, dev, gen, cb, flush, K, N, M, bits, lead=None):
     out = dict(
         K=K, N=N, M=M, bits=bits, lead=lead, bytes=nbytes, flops=flops,
         bound_ms=bound_ms(nbytes, flops), bitwise_repeat=True,
-        vec=geo.vec, splits=geo.splits,
+        vec=geo.vec, splits=geo.splits, chunks=geo.chunks,
         blocks=geo.tiles * geo.splits * E, **mod.mma_info(bits, M, geo.vec),
         kernel_ms=time_ms(lambda: kern(x, codes, scales, cb, block, bits),
                           flush),
         plain_ms=time_ms(lambda: ref.dequant_matmul_ref(
             x, codes, scales, cb, block, bits), flush),
-        library_ms=time_ms(lambda: torch.matmul(x, w), flush),
+        library_ms=time_ms((lambda: torch.matmul(x, w)) if lead is None
+                           else (lambda: torch.bmm(x, w)), flush),
         max_abs_err=err, max_abs_y=scale)
     del w
     return out
@@ -587,6 +631,17 @@ def kernel_phase(mods, dev, tc_ptxas, attn_ptxas):
     record("dequant_matmul", matmul_case(mods, dev, gen, cb4, flush, 768,
                                          2048, 4, 4, lead=4),
            model="paper-100m", weights="lead dim 4")
+    for (K, N), per_step, names in MOE_PROJECTIONS:
+        record("dequant_matmul", matmul_case(
+            mods, dev, gen, cb4, flush, K, N, 4, 4), model=MOE_ARCH,
+            weights=names, launches_per_step=per_step)
+    for model, E, K, N, per_step, names in EXPERT_CASES:
+        r = matmul_case(mods, dev, gen, cb4, flush, K, N, 4, 4, lead=E)
+        want = EXPERT_GEOMETRY.get((E, K, N))
+        check(want is None or {k: r[k] for k in want} == want,
+              f"dequant_matmul lead {E} {K}x{N}: geometry {r} != {want}")
+        record("dequant_matmul", r, model=model,
+               weights=f"{names} (lead dim {E})", launches_per_step=per_step)
     V, D = UNEMBED_T
     for M, bits in ((1, 4), (4, 4), (32, 4), (4, 8)):
         record("dequant_matmul_t", matmul_t_case(
@@ -612,19 +667,20 @@ def kernel_phase(mods, dev, tc_ptxas, attn_ptxas):
 
 
 def build_engine(arch, dev, seed=0, kv_len=256, kv_format=""):
+    """``arch`` full at seed ``seed``, served packed (``SPEC``) on 4 slots
+    with prefill chunk 8 by the port's builder, which draws and packs one
+    leaf at a time (``build_packed_engine``): deepseek-7b's f32 tree is
+    about 28 GB, qwen2-moe-a2.7b's 57.3 GB. Returns (engine, seconds)."""
     from repro_torch import configs
-    from repro_torch.core import build_plan
     from repro_torch.models import transformer
-    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.models.api import init_leaves
+    from repro_torch.serve.engine import build_packed_engine
     cfg = configs.get_config(arch, "full").replace(kv_format=kv_format)
     t0 = time.monotonic()
-    params = transformer.init(cfg, seed=seed, device=dev)
-    plan = build_plan(params, SPEC)
-    quantise_leaf_by_leaf(plan, params)
-    eng = ServeEngine.from_quantised(cfg, params, plan, batch_slots=4,
-                                     kv_len=kv_len, prefill_chunk=8,
-                                     device=dev)
-    del params
+    eng, _ = build_packed_engine(
+        cfg, SPEC, init_leaves(transformer.param_specs(cfg), seed=seed,
+                               device=dev),
+        batch_slots=4, kv_len=kv_len, prefill_chunk=8, device=dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return eng, time.monotonic() - t0
@@ -690,17 +746,20 @@ def serve(eng, mods, requests, keep_logits, warm=True, cache_decodes=0):
     steps0 = eng.steps_total
     for m in mods.values():
         m.launches = 0
+    mods["dequant_matmul"].lead_launches = 0
     t0 = time.monotonic()
     done = eng.run(max_steps=4096)
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {name: m.launches for name, m in mods.items()}
+    lead_launches = mods["dequant_matmul"].lead_launches
     steps = eng.steps_total - steps0
     eng.fam = dataclasses.replace(eng.fam, decode_step=rec.step)
     decode = [r["s"] for r in rec.records if r["T"] == 1]
     prefill = [r["s"] for r in rec.records if r["T"] > 1]
     n_tok = sum(len(g.tokens) for g in done)
-    stats = dict(steps=steps, launches=launches, tokens=n_tok,
+    stats = dict(steps=steps, launches=launches,
+                 dequant_matmul_lead_launches=lead_launches, tokens=n_tok,
                  wall_s=wall, tokens_per_s=n_tok / wall,
                  decode_ms_per_step=1e3 * float(np.median(decode)),
                  prefill_ms_per_step=1e3 * float(np.median(prefill)),
@@ -709,13 +768,19 @@ def serve(eng, mods, requests, keep_logits, warm=True, cache_decodes=0):
     return done, stats, rec.records
 
 
-def check_run(arch, done, stats, requests):
+def check_run(arch, done, stats, requests, lead_per_step=0):
     """Every request finished with all its tokens, and each kernel ran its
-    designed number of launches per step (and the others none)."""
+    designed number of launches per step (and the others none),
+    ``dequant_matmul`` ``lead_per_step`` of them with a lead dim. ``arch``
+    names the row of ``LAUNCHES_PER_STEP``."""
     check(stats["failed"] == 0 and stats["done"] == len(requests) and
           sorted(len(g.tokens) for g in done) ==
           sorted(n for _, n in requests),
           f"{arch}: requests did not all finish: {stats}")
+    lead = stats["dequant_matmul_lead_launches"]
+    check(lead == lead_per_step * stats["steps"],
+          f"{arch}: dequant_matmul launched {lead} times with a lead dim "
+          f"over {stats['steps']} steps, expected {lead_per_step} per step")
     per_step = LAUNCHES_PER_STEP[arch]
     for name, n in stats["launches"].items():
         want = per_step.get(name, 0) * stats["steps"]
@@ -752,8 +817,12 @@ def profile_steps(eng, mods):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
     events = prof.key_averages()
-    kernels = sorted((e for e in events if dev_us(e) > 0), key=dev_us,
-                     reverse=True)
+    # device events only (kernels, copies): a CPU op's self device time is
+    # that of the kernels it launched, which are listed again as events of
+    # their own
+    kernels = sorted((e for e in events
+                      if e.device_type != torch.autograd.DeviceType.CPU
+                      and dev_us(e) > 0), key=dev_us, reverse=True)
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     host = sorted(events, key=lambda e: e.self_cpu_time_total,
                   reverse=True)[:10]
@@ -855,7 +924,99 @@ def hold_kv_witness(stats):
     return dict(stats, differ_share=share)
 
 
-def replay_on_cpu(eng, records, card_cache=False, kv_stats=None):
+class RouteRecorder:
+    """While ``installed()``, records the expert choices (N, k) of every
+    ``layers.route`` call (one a layer a step: the card's routing), as the
+    device tensors the router returned."""
+
+    def __init__(self):
+        self.calls = []
+
+    @contextlib.contextmanager
+    def installed(self):
+        from repro_torch.models import layers
+        route = layers.route
+
+        def recording(probs, k):
+            vals, choice = route(probs, k)
+            self.calls.append(choice)
+            return vals, choice
+        layers.route = recording
+        try:
+            yield self
+        finally:
+            layers.route = route
+
+
+def route_stats():
+    return dict(dispatches=0, differ=0, tokens=0, tokens_reordered=0)
+
+
+def route_witness(calls, stats):
+    """A ``layers.route`` for the CPU replay: takes the CPU's own top k,
+    counts the dispatches whose expert is not among the card's choices for
+    the same token (``calls``, in call order) and the tokens whose choices
+    differ only in order, and returns the card's choices with the CPU's
+    probabilities at them. Card and CPU round the bf16 router matmul
+    differently, so a near-tie can send a token to another expert: a large
+    logit difference that says nothing of the kernels. With the card's
+    choices both sides dispatch, drop and combine alike."""
+    from repro_torch.models import layers
+    route = layers.route
+    pending = iter(calls)
+
+    def witness(probs, k):
+        _, own = route(probs, k)
+        card = next(pending).to(own.device)
+        check(card.shape == own.shape, f"routing witness: card choices "
+              f"{tuple(card.shape)} against the CPU's {tuple(own.shape)}")
+        shared = (own[:, :, None] == card[:, None, :]).any(-1)
+        stats["dispatches"] += own.numel()
+        stats["tokens"] += own.shape[0]
+        stats["differ"] += int((~shared).sum())
+        stats["tokens_reordered"] += int(
+            (shared.all(-1) & (own != card).any(-1)).sum())
+        return torch.gather(probs, -1, card), card
+    return witness
+
+
+# route_witness's limits, about 3.6x and 2.5x the largest shares read on
+# the H100 at qwen2-moe-a2.7b full (prefill + first decode step, dense and
+# q8 caches): dispatches to another expert 1.01% and 1.39%, tokens whose
+# experts came in another order 7.5% and 10.1%
+ROUTE_DIFFER_MAX = 0.05
+ROUTE_REORDERED_MAX = 0.25
+
+
+def hold_route_witness(stats):
+    """The rule for ``route_witness``'s counts: at most ``ROUTE_DIFFER_MAX``
+    of the dispatches went to an expert the card did not choose, and at
+    most ``ROUTE_REORDERED_MAX`` of the tokens had the card's experts in
+    another order. Card and CPU round a bf16 router logit an ulp apart,
+    which only moves near-ties; a fault in the card's routing (a wrong
+    router matmul, a sort in the wrong direction, an order that is not
+    stable) moves most tokens. Returns the counts with both shares."""
+    check(stats["dispatches"] > 0, "the routing witness compared nothing")
+    out = dict(stats, differ_share=stats["differ"] / stats["dispatches"],
+               reordered_share=stats["tokens_reordered"] / stats["tokens"])
+    check(out["differ_share"] <= ROUTE_DIFFER_MAX and
+          out["reordered_share"] <= ROUTE_REORDERED_MAX,
+          f"the CPU's own routing disagrees with the card's: {out}")
+    return out
+
+
+def dropped_dispatches(choice, E, capacity_factor):
+    """Dispatches of one MoE call past their expert's capacity (``cap =
+    max(ceil(capacity_factor · k · N / E), 4)``), from its choices (N, k):
+    they fall through to the residual."""
+    N, k = choice.shape
+    cap = max(math.ceil(capacity_factor * k * N / E), 4)
+    counts = torch.bincount(choice.reshape(-1), minlength=E)
+    return int((counts - cap).clamp(min=0).sum())
+
+
+def replay_on_cpu(eng, records, card_cache=False, kv_stats=None,
+                  routes=None, route_stats=None):
     """Replay the card's recorded batches through the plain path on the CPU
     (the same packed weights); yield (card logits, CPU logits, what) for
     every valid position.
@@ -868,16 +1029,23 @@ def replay_on_cpu(eng, records, card_cache=False, kv_stats=None):
     sides then read the same quantised cache, so the logits compare holds
     the computation, not the rounding of near-midpoint values to a
     different code, and the witness holds the CPU's own new k and v to the
-    codes the card wrote."""
+    codes the card wrote.
+
+    ``routes`` (the card's expert choices of these steps, a
+    ``RouteRecorder``'s calls) routes every MoE call of the replay as the
+    card did, through ``route_witness`` (its counts go to
+    ``route_stats``)."""
     from repro_torch.models import layers
     from repro_torch.serve.engine import alloc_decode_state, params_to
     cpu = torch.device("cpu")
     params = params_to(eng.params, cpu)
     state = alloc_decode_state(eng.fam, eng.cfg, eng.B, eng.kv_len,
                                slack=eng.prefill_chunk, device=cpu)
-    write_kv_pair = layers.write_kv_pair
+    write_kv_pair, route = layers.write_kv_pair, layers.route
     if card_cache:
         layers.write_kv_pair = kv_witness(kv_stats)
+    if routes is not None:
+        layers.route = route_witness(routes, route_stats)
     try:
         with torch.inference_mode():
             for rec in records:
@@ -899,15 +1067,16 @@ def replay_on_cpu(eng, records, card_cache=False, kv_stats=None):
                                f"card vs CPU plain path, step pos "
                                f"{int(rec['pos'][i])}")
     finally:
-        layers.write_kv_pair = write_kv_pair
+        layers.write_kv_pair, layers.route = write_kv_pair, route
 
 
-def compare_with_cpu(eng, records, card_cache=False, kv_stats=None):
+def compare_with_cpu(eng, records, card_cache=False, kv_stats=None,
+                     routes=None, route_stats=None):
     """Hold the card's logits to the plain path's replay (``replay_on_cpu``)
     under ``hold_logits``."""
     worst, n_margin = 0.0, 0
     for got, want, what in replay_on_cpu(eng, records, card_cache,
-                                         kv_stats):
+                                         kv_stats, routes, route_stats):
         rel, margin = hold_logits(got, want, what)
         worst = max(worst, rel)
         n_margin += margin
@@ -2350,6 +2519,135 @@ def frontend_phase(dev, mods):
     return [{"launches": r["launches"]} for r in runs]
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: MoE serving (qwen2-moe-a2.7b full)
+
+
+MOE_COMPARE_STEPS = 2     # the prefill step and the first decode step
+
+
+def moe_phase(dev, mods):
+    """qwen2-moe-a2.7b full (24 layers, 60 routed experts of 1408, top-4, 4
+    shared), babsmax64:n4 packed, seeded weights drawn and packed one leaf
+    at a time: 4 requests on a dense cache, then on a q8 cache. Each run
+    launches ``dequant_matmul`` 241 times a step, 72 of them over the
+    expert stacks with their lead dim E = 60 (and with q8, 24
+    ``block_quant_kv`` and 24 ``decode_attention_quant``), is profiled,
+    reports its dropped dispatches per step, and holds its prefill step and
+    first decode step to the CPU plain path at full depth, routed as the
+    card routed (``route_witness``, held by ``hold_route_witness``). Then
+    ``launch.serve`` serves the model from the command line (``moe_cli``).
+    """
+    from repro_torch.serve.engine import Request, ServeEngine
+    arch = MOE_ARCH
+    t_phase = time.monotonic()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng, setup_s = build_engine(arch, dev, kv_len=256)
+    setup = {"setup_s": setup_s,
+             "setup_peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+    wb = eng.weight_bytes()
+    check({k: wb[k] for k in WEIGHT_BYTES[arch]} == WEIGHT_BYTES[arch],
+          f"{arch} weight_bytes {wb} != {WEIGHT_BYTES[arch]}")
+    cfg = eng.cfg
+    L, E = cfg.n_layers, cfg.n_experts
+    reqs = short_requests(cfg.vocab)
+    runs = []
+    for fmt in ("dense", "q8"):
+        key = arch if fmt == "dense" else f"{arch} {fmt}"
+        if fmt != "dense":
+            t0 = time.monotonic()
+            eng = ServeEngine(cfg.replace(kv_format=fmt), eng.params,
+                              batch_slots=4, kv_len=256, prefill_chunk=8,
+                              device=dev)
+            setup = {"engine_s": time.monotonic() - t0}
+        eng.submit(Request(prompt=reqs[0][0], max_new_tokens=2, rid=-1))
+        eng.run()                      # warm-up, not recorded
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        routes = RouteRecorder()
+        with routes.installed():
+            done, stats, records = serve(eng, mods, reqs, keep_logits=True,
+                                         warm=False)
+        check_run(key, done, stats, reqs, lead_per_step=MOE_LEAD_LAUNCHES)
+        check(not eng.degraded, f"{key}: the engine degraded to dense")
+        calls = [c.cpu() for c in routes.calls]
+        check(len(calls) == L * stats["steps"], f"{key}: {len(calls)} "
+              f"routing calls over {stats['steps']} steps of {L} layers")
+        step_calls = [calls[i * L:(i + 1) * L] for i in range(stats["steps"])]
+        dropped = [sum(dropped_dispatches(c, E, cfg.capacity_factor)
+                       for c in cs) / sum(c.numel() for c in cs)
+                   for cs in step_calls]
+        cb = eng.cache_bytes()
+        out = dict(phase="moe", arch=arch, kv_format=fmt, **setup,
+                   weight_bytes=wb, kv_bytes=cb["kv"],
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+                   dropped_share_per_step=dropped,
+                   step_tokens=[r["T"] for r in records], **stats)
+        emit(phase="profile", arch=arch, kv_format=fmt,
+             **profile_steps(eng, mods))
+        records = records[:MOE_COMPARE_STEPS]
+        check(records[0]["T"] > 1 and records[-1]["T"] == 1,
+              f"{key}: the compare needs the prefill and a decode step")
+        t0 = time.monotonic()
+        rs = route_stats()
+        worst, n = compare_with_cpu(eng, records,
+                                    routes=calls[:len(records) * L],
+                                    route_stats=rs)
+        out.update(cpu_max_rel_logit_err=worst, cpu_margin_tokens=n,
+                   cpu_compared_steps=len(records), cpu_compared_layers=L,
+                   cpu_compare_s=time.monotonic() - t0,
+                   route_witness=hold_route_witness(rs))
+        del records
+        out["tokens"] = {g.rid: g.tokens for g in done}
+        emit(**out)
+        runs.append(stats)
+        emit(phase="timing", moe_run_end_s=time.monotonic() - t_phase,
+             kv_format=fmt)
+    del eng
+    torch.cuda.empty_cache()
+    runs.append(moe_cli(mods))
+    emit(phase="timing", moe_cli_end_s=time.monotonic() - t_phase)
+    return runs
+
+
+def moe_cli(mods):
+    """``launch.serve`` at qwen2-moe-a2.7b full, packed: the user's entry
+    point sets the model up one leaf at a time and serves 4 requests of 8
+    tokens on the packed path, each step launching ``dequant_matmul`` 241
+    times, 72 of them with the expert lead dim, with the resident weight
+    bytes of ``WEIGHT_BYTES``. Returns the run's launches."""
+    from repro_torch.launch import serve as serve_cli
+    arch, steps = MOE_ARCH, 8
+    t0 = time.monotonic()
+    mods["dequant_matmul"].lead_launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    (done, text), launches = served(mods, lambda: quiet(serve_cli.main, [
+        "--arch", arch, "--variant", "full", "--quantise", SPEC, "--packed",
+        "--kv-len", "256", "--requests", "4", "--max-new", str(steps),
+        "--no-dense-fallback", "--device", "cuda"]))
+    lead = mods["dequant_matmul"].lead_launches
+    check(len(done) == 4 and all(len(g.tokens) == steps and not g.failed
+                                 for g in done),
+          f"serve --arch {arch}: requests did not all finish")
+    check_packed_steps(launches, text, steps=steps,
+                       per_step=LAUNCHES_PER_STEP[arch]["dequant_matmul"],
+                       unembed=False, what=f"serve --arch {arch}")
+    check(lead == MOE_LEAD_LAUNCHES * steps, f"serve --arch {arch}: "
+          f"{lead} lead-dim launches over {steps} steps")
+    wb = WEIGHT_BYTES[arch]
+    check(f"{wb['codes']:,} codes + {wb['scales']:,} scales" in text and
+          f"{wb['dense']:,} dense bytes" in text,
+          f"serve --arch {arch}: weight bytes differ: {text[:600]}")
+    emit(phase="moe", step="cli", arch=arch, s=time.monotonic() - t0,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         launches=launches, dequant_matmul_lead_launches=lead,
+         report=[ln for ln in text.splitlines() if ln.startswith("[serve]")],
+         tokens={g.rid: g.tokens for g in done})
+    del done
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
 def device_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -2491,6 +2789,16 @@ def summary(rows, runs):
                   lambda r: r["launches_per_step"])
     emit(phase="summary", measured_over="one deepseek-7b decode step at "
          "M=4 (211 launches)", kernel="dequant_matmul", **ds)
+    # qwen2-moe-a2.7b's decode step: all 241 launches, and the 72 over the
+    # expert stacks (lead dim E = 60, M = 4 rows an expert)
+    for what, lead in (("241 launches", None), ("its 72 expert-stack "
+                                                "launches, lead dim 60", 60)):
+        emit(phase="summary", kernel="dequant_matmul",
+             measured_over=f"one {MOE_ARCH} decode step at M=4 ({what})",
+             **per_step(rows["dequant_matmul"],
+                        lambda r: r.get("model") == MOE_ARCH and
+                        (lead is None or r["lead"] == lead),
+                        lambda r: r["launches_per_step"]))
     # block_quant per gemma3-1b decode step (hd 256, 4 rows): the paired
     # call once a layer against two single-tensor calls a layer (the
     # parent's path), by one call per event pair and launch-bound
@@ -2577,9 +2885,11 @@ def main() -> int:
     emit(phase="timing", train_end_s=time.monotonic() - t_start)
     frontend_runs = frontend_phase(dev, mods)
     emit(phase="timing", frontend_end_s=time.monotonic() - t_start)
+    moe_runs = moe_phase(dev, mods)
+    emit(phase="timing", moe_end_s=time.monotonic() - t_start)
 
     line = summary(rows, [paper, deepseek, *gemma, *alloc_runs, *train_runs,
-                          *frontend_runs])
+                          *frontend_runs, *moe_runs])
     emit(phase="timing", total_s=time.monotonic() - t_start)
     emit(kernels=line)
     emit(ok=True, device={"platform": "gpu",

@@ -2,12 +2,15 @@
 
 Each module exposes ``full()`` (the published config) and ``smoke()`` (a
 reduced same-family config for CPU tests); paper-100m also ``small()``.
-The reference's other eight configs come with their model families."""
+The reference's other five configs (llama3-405b, rwkv6, zamba2, whisper,
+internvl) come with their model families."""
 from __future__ import annotations
 
-from . import deepseek_7b, gemma3_1b, paper_100m
+from . import (deepseek_7b, gemma3_1b, internlm2_20b, llama4_scout_17b_a16e,
+               paper_100m, qwen2_moe_a2_7b)
 
-_MODULES = [deepseek_7b, gemma3_1b, paper_100m]
+_MODULES = [llama4_scout_17b_a16e, qwen2_moe_a2_7b, internlm2_20b,
+            gemma3_1b, deepseek_7b, paper_100m]
 
 ARCHS = {m.ARCH_ID: m for m in _MODULES}
 

@@ -9,6 +9,7 @@ a per-tensor bit allocation (Eq. 5, ``core/allocation.py``);
 """
 from __future__ import annotations
 
+import dataclasses
 import re
 from dataclasses import dataclass, field
 from typing import Dict, Optional
@@ -136,19 +137,50 @@ class QuantisationPlan:
                             out_shape=out_shape, shape=shape,
                             dtype=qt.dtype, block=b, bits=bits)
 
+    def _pack_one(self, name: str, q, layouts: Dict[str, tuple]):
+        f = self.formats.get(name)
+        if f is None or not isinstance(q, QuantisedTensor):
+            return q
+        if (self.packable(name, tuple(q.shape), layouts)
+                and q.sparse_idx is None):
+            return self._to_packed(name, q, layouts)
+        return f.dequantise(q)
+
     def pack_quantised(self, qparams, layouts: Dict[str, tuple]):
         """Quantised checkpoint → serving params: packable tensors become
         :class:`PackedTensor`; everything else quantised is dequantised to
         its reference dtype."""
-        def one(name, q):
-            f = self.formats.get(name)
-            if f is None or not isinstance(q, QuantisedTensor):
-                return q
-            if (self.packable(name, tuple(q.shape), layouts)
-                    and q.sparse_idx is None):
-                return self._to_packed(name, q, layouts)
-            return f.dequantise(q)
-        return map_with_paths(one, qparams)
+        return map_with_paths(
+            lambda name, q: self._pack_one(name, q, layouts), qparams)
+
+    def pack_leaf(self, name: str, x, layouts: Dict[str, tuple]):
+        """:meth:`pack` of the one leaf ``name``, equal to that leaf of
+        ``pack(params)``. A packable leaf with lead dims is quantised one
+        slice of its first lead dim at a time into stacked codes and scales:
+        its scales are per block of the flattened tensor and whole blocks
+        tile each output row, so no block straddles two slices and the
+        codes are those of the whole leaf, while the quantiser's f32
+        temporaries are one slice's (an expert stack of qwen2-moe full is
+        16.6 GB in f32)."""
+        f = self.formats.get(name)
+        if f is None:
+            return x
+        shape = tuple(x.shape)
+        if not self.packable(name, shape, layouts) or layouts[name][0] == 0:
+            return self._pack_one(name, f.quantise(x), layouts)
+        n_lead, n_k = layouts[name]
+        sub = {name: (n_lead - 1, n_k)}
+        codes = scales = part = None
+        for i in range(shape[0]):
+            part = self._to_packed(name, f.quantise(x[i]), sub)
+            if codes is None:
+                codes = part.codes.new_empty((shape[0],) + part.codes.shape)
+                scales = part.scales.new_empty((shape[0],) +
+                                               part.scales.shape)
+            codes[i] = part.codes
+            scales[i] = part.scales
+        return dataclasses.replace(part, codes=codes, scales=scales,
+                                   shape=shape)
 
     def pack(self, params, layouts: Dict[str, tuple]):
         """Quantise + pack in one step (fresh weights → serving params)."""
@@ -166,18 +198,24 @@ class QuantisationPlan:
         return verify_packed_tree(packed)
 
     # -- accounting -----------------------------------------------------------
+    def leaf_bits(self, name: str, x, measured: bool = False,
+                  keep_bits: float = 16.0) -> float:
+        """Bits per parameter of the one leaf ``name``: ``keep_bits`` if it
+        is not planned, measured on ``x`` for a compressed format (or with
+        ``measured``), else the format's analytic bits at ``x``'s shape."""
+        f = self.formats.get(name)
+        if f is None:
+            return keep_bits
+        if measured or f.compressed:
+            return f.measured_bits_per_param(x)
+        return f.bits_per_param(tuple(x.shape))
+
     def bits_per_param(self, params, measured: bool = False,
                        keep_bits: float = 16.0) -> float:
         total_bits, total_n = 0.0, 0
         for name, x in flat_with_paths(params):
             n = int(np.prod(tuple(x.shape)))
-            f = self.formats.get(name)
-            if f is None:
-                total_bits += keep_bits * n
-            elif measured or f.compressed:
-                total_bits += f.measured_bits_per_param(x) * n
-            else:
-                total_bits += f.bits_per_param(tuple(x.shape)) * n
+            total_bits += self.leaf_bits(name, x, measured, keep_bits) * n
             total_n += n
         return total_bits / max(total_n, 1)
 

@@ -4,7 +4,9 @@
 ``x (*lead, M, K) @ dequant(codes, scales) -> (*lead, M, N)`` on the card:
 checks every operand, allocates the output with ``torch.empty``, launches on
 the current stream and raises on a non-zero ``cudaError_t``. It never falls
-back to the plain version. ``launches`` counts the calls that launched.
+back to the plain version. ``launches`` counts the calls that launched,
+``lead_launches`` those of them with an expert lead dim (3-D x: the MoE
+expert stacks, E experts in one launch).
 
 bf16 x runs the tensor-core kernel: one launch per call, its K splits
 combined inside the launch through a per-(device, stream) workspace that
@@ -27,8 +29,9 @@ from repro_torch.core.nibble import nibble_k_tile
 from repro_torch.kernels import build
 
 # Calls of dequant_matmul_cuda that launched, since the count was last set
-# to 0.
+# to 0, and those of them with a lead dim.
 launches = 0
+lead_launches = 0
 
 BLOCKS = (32, 64, 128)
 # f32 kernel (csrc dequant_matmul_kernel)
@@ -275,7 +278,7 @@ def mma_info(bits: int, M: int, vec: int) -> dict:
 def dequant_matmul_cuda(x, codes, scales, codebook, block: int = 128,
                         bits: int = 8) -> torch.Tensor:
     """Launch the CUDA kernel; see the module docstring."""
-    global launches
+    global launches, lead_launches
     build.load_library("dequant_matmul")
     _check(x, codes, scales, codebook, block, bits)
     E = x.shape[0] if x.ndim == 3 else 1
@@ -290,4 +293,5 @@ def dequant_matmul_cuda(x, codes, scales, codebook, block: int = 128,
     launch(x, codes, scales, codebook, out, block, bits, tile, geo,
            ws_floats, n_counters)
     launches += 1
+    lead_launches += x.ndim == 3
     return out

@@ -5,6 +5,10 @@ packed, served to a batch of requests by the continuous-batching engine.
         --variant full --quantise babsmax64:n4 --packed --kv-format q8
 
 Runs on the card by default; ``--device cpu`` runs the plain torch path.
+With ``--packed`` the seeded weights are drawn and packed one leaf at a
+time (``serve.engine.build_packed_engine``): the f32 tree is never held
+whole, so a model whose f32 weights exceed the card (qwen2-moe-a2.7b full,
+57.3 GB) serves from its 7.6 GB of packed weights.
 ``--kv-format auto --kv-budget-bytes N`` picks each cache group's format
 (f32, q8 or q4) by the Fisher sensitivity of its K/V rows, measured on a
 short dense decode, so that the serving cache fits N bytes. ``--ckpt DIR``
@@ -28,8 +32,10 @@ import torch
 
 from repro_torch import configs
 from repro_torch.core import build_plan
-from repro_torch.models.api import get_family, resolve_device, torch_dtype
-from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.core.plan import flat_with_paths
+from repro_torch.models.api import (get_family, init_leaves, resolve_device,
+                                    torch_dtype)
+from repro_torch.serve.engine import Request, ServeEngine, build_packed_engine
 
 
 def main(argv=None):
@@ -118,9 +124,11 @@ def main(argv=None):
     device = resolve_device(args.device)
     cfg = configs.get_config(args.arch, args.variant)
     fam = get_family(cfg.family)
+    packed = bool(args.quantise and args.packed)
+    params = None
     if args.ckpt:
         params = _load_ckpt_params(args.ckpt, fam, cfg, device)
-    else:
+    elif not packed or args.kv_format == "auto":
         params = fam.init(cfg, seed=args.seed, device=device)
     if args.kv_format == "auto":
         cfg = cfg.replace(kv_format=_auto_kv_format(cfg, fam, params, args))
@@ -132,27 +140,30 @@ def main(argv=None):
               windowed_cache=not args.uniform_cache,
               step_retries=args.step_retries,
               dense_fallback=args.dense_fallback, device=device)
-    if args.quantise:
+    if packed:
+        # seeded weights are drawn and packed one leaf at a time, so the
+        # f32 tree is never held whole
+        leaves = (flat_with_paths(params) if params is not None else
+                  init_leaves(fam.param_specs(cfg), seed=args.seed,
+                              device=device))
+        eng, bits = build_packed_engine(cfg, args.quantise, leaves,
+                                        validate=not args.no_validate, **kw)
+        wb = eng.weight_bytes()
+        if wb["packed"] == 0:
+            raise SystemExit(
+                f"[serve] --packed: no tensor of {cfg.family!r} packs "
+                f"under format {args.quantise!r} — use a block-scaled "
+                "codebook format, or drop --packed to serve dense")
+        print(f"[serve] packed {args.quantise} ({bits:.2f} bits/param): "
+              f"{wb['packed']:,} packed ({wb['codes']:,} codes + "
+              f"{wb['scales']:,} scales + {wb['codebooks']:,} codebooks)"
+              f" + {wb['dense']:,} dense bytes resident")
+    elif args.quantise:
         plan = build_plan(params, args.quantise)
         bits = plan.bits_per_param(params)
-        if args.packed:
-            eng = ServeEngine.from_quantised(
-                cfg, plan.quantise(params), plan,
-                validate=not args.no_validate, **kw)
-            wb = eng.weight_bytes()
-            if wb["packed"] == 0:
-                raise SystemExit(
-                    f"[serve] --packed: no tensor of {cfg.family!r} packs "
-                    f"under format {args.quantise!r} — use a block-scaled "
-                    "codebook format, or drop --packed to serve dense")
-            print(f"[serve] packed {args.quantise} ({bits:.2f} bits/param): "
-                  f"{wb['packed']:,} packed ({wb['codes']:,} codes + "
-                  f"{wb['scales']:,} scales + {wb['codebooks']:,} codebooks)"
-                  f" + {wb['dense']:,} dense bytes resident")
-        else:
-            eng = ServeEngine(cfg, plan.fake_quant(params), **kw)
-            print(f"[serve] weights quantised to {args.quantise} "
-                  f"({bits:.2f} bits/param)")
+        eng = ServeEngine(cfg, plan.fake_quant(params), **kw)
+        print(f"[serve] weights quantised to {args.quantise} "
+              f"({bits:.2f} bits/param)")
     else:
         eng = ServeEngine(cfg, params, **kw)
     del params
@@ -200,7 +211,7 @@ def _load_ckpt_params(path, fam, cfg, device):
     tensor checked against the config's parameter specs."""
     import os
 
-    from repro_torch.core.plan import flat_with_paths, map_with_paths
+    from repro_torch.core.plan import map_with_paths
     from repro_torch.train.checkpoint import (latest_checkpoint,
                                               restore_checkpoint)
     if not os.path.exists(os.path.join(path, "manifest.json")):

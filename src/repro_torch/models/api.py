@@ -227,30 +227,39 @@ def get_family(name: str) -> ModelFamily:
 # Spec utilities
 # ---------------------------------------------------------------------------
 
-def init_from_specs(specs, *, seed: int = 0, device=None):
-    """Materialise parameters on ``device``: truncated-normal (±3σ) fan-in
-    init for >=2-D leaves (std 0.02 for embeddings), ones for norm gains,
-    zeros for biases and vectors. One ``torch.Generator`` seeded with
-    ``seed`` on the target device draws every leaf in sorted path order.
-    The numbers differ from ``jax.random``'s; tests carry reference weights
-    across with ``repro_torch.interop`` instead."""
+def init_leaves(specs, *, seed: int = 0, device=None):
+    """Yield ``(path, tensor)`` for every leaf of ``specs`` in sorted path
+    order, each made on ``device`` when it is reached: truncated-normal
+    (±3σ) fan-in init for >=2-D leaves (std 0.02 for embeddings), ones for
+    norm gains, zeros for biases and vectors. One ``torch.Generator`` seeded
+    with ``seed`` on the target device draws every leaf in turn, so the
+    leaves equal :func:`init_from_specs`'s; a caller that quantises each
+    leaf and drops it holds one f32 leaf at a time. The numbers differ from
+    ``jax.random``'s; tests carry reference weights across with
+    ``repro_torch.interop`` instead."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    for name, spec in flat_with_paths(specs):
+        yield name, _init_leaf(name, spec, gen, dev)
 
-    def make(name, spec):
-        dt = torch_dtype(spec.dtype)
-        if "norm" in name or name.endswith("gain']"):
-            return torch.ones(spec.shape, dtype=dt, device=dev)
-        if "bias" in name or spec.numel == 0 or len(spec.shape) < 2:
-            return torch.zeros(spec.shape, dtype=dt, device=dev)
-        if "embed" in name:
-            std = 0.02
-        else:  # fan_in = numel / fan_out(last dim)
-            std = 1.0 / np.sqrt(max(spec.numel // max(spec.shape[-1], 1), 1))
-        x = torch.empty(spec.shape, dtype=torch.float32, device=dev)
-        torch.nn.init.trunc_normal_(x, 0.0, 1.0, -3.0, 3.0, generator=gen)
-        return x.mul_(std).to(dt)
 
-    leaves = {name: make(name, spec)
-              for name, spec in flat_with_paths(specs)}
+def _init_leaf(name, spec, gen, dev):
+    dt = torch_dtype(spec.dtype)
+    if "norm" in name or name.endswith("gain']"):
+        return torch.ones(spec.shape, dtype=dt, device=dev)
+    if "bias" in name or spec.numel == 0 or len(spec.shape) < 2:
+        return torch.zeros(spec.shape, dtype=dt, device=dev)
+    if "embed" in name:
+        std = 0.02
+    else:  # fan_in = numel / fan_out(last dim)
+        std = 1.0 / np.sqrt(max(spec.numel // max(spec.shape[-1], 1), 1))
+    x = torch.empty(spec.shape, dtype=torch.float32, device=dev)
+    torch.nn.init.trunc_normal_(x, 0.0, 1.0, -3.0, 3.0, generator=gen)
+    return x.mul_(std).to(dt)
+
+
+def init_from_specs(specs, *, seed: int = 0, device=None):
+    """Materialise parameters on ``device`` (default the card): the leaves
+    of :func:`init_leaves`, in the tree of ``specs``."""
+    leaves = dict(init_leaves(specs, seed=seed, device=device))
     return map_with_paths(lambda name, _: leaves[name], specs)

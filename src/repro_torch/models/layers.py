@@ -1,13 +1,16 @@
 """Shared layers: the packed-aware projection API (``linear``,
-``embed_lookup``), RMSNorm, RoPE, multi-token decode attention over a dense
-or quantised KV cache, cache writes, the teacher-forcing chunked
-``flash_attention`` and ``attn_block``, and the SwiGLU MLP.
+``embed_lookup``, ``expert_matmul``), RMSNorm, RoPE, multi-token decode
+attention over a dense or quantised KV cache, cache writes, the
+teacher-forcing chunked ``flash_attention`` and ``attn_block``, the SwiGLU
+MLP and the sort-based MoE block.
 
 Torch on the operands' device. ``linear`` is the single way a model
 multiplies an activation by a parameter: dense weights take the einsum of
 the call site, ``PackedTensor`` weights the fused ``dequant_matmul`` kernel
 (or ``dequant_matmul_t`` when the contraction runs along the packed table's
-blocked axis, the tied unembed). A quantised KV cache (:class:`QuantisedKV`)
+blocked axis, the tied unembed); stacked expert weights go through
+``expert_matmul``, which runs ``dequant_matmul`` with its expert lead dim
+when packed. A quantised KV cache (:class:`QuantisedKV`)
 is written through ``block_quant`` (k and v of a layer in one
 ``block_quant_kv`` call) and read through
 ``decode_attention_quant``. Each is the CUDA kernel on the card and its
@@ -16,6 +19,7 @@ plain version on the CPU.
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -68,6 +72,18 @@ def linear(x, w, spec: str):
                                 w.codes, w.scales, w.codebook(),
                                 block=w.block, bits=w.bits)
         return y.reshape(B, T, *w.out_shape)
+    return torch.einsum(spec, x, w.to(x.dtype))
+
+
+def expert_matmul(x, w, spec: str):
+    """Per-expert batched matmul: x (E, C, K) against a stacked expert
+    weight w (E, K, N) (``spec`` e.g. "ecd,edf->ecf"). A packed stack runs
+    ``dequant_matmul`` with its lead dim E: the codes of every expert stream
+    packed, in one launch on the card."""
+    if isinstance(w, PackedTensor):
+        y = kops.dequant_matmul(x.contiguous(), w.codes, w.scales,
+                                w.codebook(), block=w.block, bits=w.bits)
+        return y.to(x.dtype)
     return torch.einsum(spec, x, w.to(x.dtype))
 
 
@@ -454,3 +470,112 @@ def swiglu(x, p: MlpParams):
     u = linear(x, p.w_up, "btd,df->btf")
     h = torch.nn.functional.silu(g) * u
     return linear(h, p.w_down, "btf,fd->btd")
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts
+# ---------------------------------------------------------------------------
+
+class MoeParams(NamedTuple):
+    w_router: torch.Tensor   # (D, E)
+    w_gate: torch.Tensor     # (E, D, F)
+    w_up: torch.Tensor       # (E, D, F)
+    w_down: torch.Tensor     # (E, F, D)
+    shared: Optional[MlpParams] = None
+
+
+def route(probs, k: int):
+    """The top ``k`` router probabilities of each token and their experts,
+    in descending order with ties to the lower expert index (as
+    ``jax.lax.top_k``; ``torch.topk`` promises no order for ties): a
+    stable descending sort on every device. probs (N, E) -> (N, k) each."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[:, :k], idx[:, :k]
+
+
+def moe_block(x, p: MoeParams, cfg):
+    """Top-k routed experts (plus shared experts): (out (B, T, D), the
+    router's load-balancing loss). The reference's expert-parallel branch
+    (``moe_block_ep``) is not ported: every call takes the local
+    sort-dispatch path."""
+    out, probs, choice = _moe_block_local(x, p, cfg)
+    return out, router_load_balancing_loss(probs, choice, cfg.n_experts)
+
+
+def moe_block_out(x, p: MoeParams, cfg):
+    """``moe_block``'s output alone, for the decode step, which has no use
+    for the loss: its launches are never made."""
+    return _moe_block_local(x, p, cfg)[0]
+
+
+def _moe_block_local(x, p: MoeParams, cfg):
+    """Top-k routed experts with sort-based capacity dispatch, as the
+    reference's: each expert takes at most ``cap = max(ceil(capacity_factor
+    · k · N / E), 4)`` of its dispatches (N = B·T, padded rows included), in
+    token order; the rest fall through to the residual (plus the shared
+    experts). Returns (out (B, T, D), the router's probabilities (N, E) in
+    f32, the experts chosen (N, k)): the load-balancing loss is made from
+    the last two by ``moe_block``, for the callers that want it.
+
+    Dispatch writes each kept dispatch's row to its (expert, rank) slot; the
+    dropped ones all go to one spare row past the E·cap slots, which is cut
+    off, so no slot sums two rows and nothing depends on write order. The
+    combine adds each token's k weighted expert rows in choice order, the
+    order of the reference's scatter-add."""
+    B, T, D = x.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    N = B * T
+    dev = x.device
+    xt = x.reshape(N, D)
+    logits = linear(xt[None], p.w_router, "btd,de->bte")[0]
+    probs = torch.softmax(logits.float(), dim=-1)
+    gate_vals, choice = route(probs, k)                  # (N, k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)        # renormalise
+    expert_flat = choice.reshape(-1)                     # (N·k,)
+    cap = max(math.ceil(cfg.capacity_factor * k * N / E), 4)
+
+    # rank of each dispatch within its expert (stable sort by expert id)
+    order = torch.argsort(expert_flat, stable=True)
+    sorted_e = expert_flat[order]
+    starts = torch.searchsorted(sorted_e, torch.arange(E, device=dev),
+                                side="left")
+    rank = torch.empty_like(expert_flat)
+    rank[order] = torch.arange(N * k, device=dev) - starts[sorted_e]
+    keep = rank < cap
+    safe_rank = torch.where(keep, rank, cap - 1)
+
+    # dispatch: (E, cap, D), dropped dispatches parked in row E·cap
+    tok_idx = torch.arange(N * k, device=dev) // k
+    slot = expert_flat * cap + safe_rank
+    buf = torch.zeros((E * cap + 1, D), dtype=x.dtype, device=dev)
+    buf[torch.where(keep, slot, E * cap)] = xt[tok_idx]
+    buf = buf[:E * cap].view(E, cap, D)
+
+    g = expert_matmul(buf, p.w_gate, "ecd,edf->ecf")
+    u = expert_matmul(buf, p.w_up, "ecd,edf->ecf")
+    h = torch.nn.functional.silu(g) * u
+    y = expert_matmul(h, p.w_down, "ecf,efd->ecd")
+
+    # combine: gather back, weight by the (renormalised) gate, sum a
+    # token's k contributions in choice order
+    y_tok = y.reshape(E * cap, D)[slot]                  # (N·k, D)
+    w = torch.where(keep, gate_vals.reshape(-1), 0.0).to(x.dtype)
+    contrib = (y_tok * w[:, None]).view(N, k, D)
+    out = contrib[:, 0]
+    for j in range(1, k):
+        out = out + contrib[:, j]
+
+    out = out.reshape(B, T, D)
+    if p.shared is not None:
+        out = out + swiglu(x, p.shared)
+    return out, probs, choice
+
+
+def router_load_balancing_loss(probs, choice, E: int):
+    """Switch-style auxiliary loss: E · Σ_e f_e · P_e (f_e the share of
+    tokens whose first choice is e, P_e the mean router probability)."""
+    onehot = torch.nn.functional.one_hot(choice[:, 0], E).float()
+    f = onehot.mean(0)
+    pbar = probs.mean(0)
+    return E * torch.sum(f * pbar)

@@ -13,8 +13,10 @@ quantised (q8/q4 codes with per-row scales). Tied embeddings serve the
 logits from the packed embedding table. ``apply`` runs the same layer
 stack over whole sequences (chunked ``flash_attention``, no cache), on
 dense or packed weights, with each layer rematerialised under autograd
-when ``cfg.remat`` asks. MoE experts come with a later slice and raise
-here.
+when ``cfg.remat`` asks. MoE configs (qwen2-moe, llama4-scout) replace the
+dense MLP by ``layers.moe_block``: stacked expert weights (L, E, ·, ·),
+packed with two lead dims, whose layer views stream through
+``dequant_matmul``'s expert lead dim; the router stays dense.
 """
 from __future__ import annotations
 
@@ -25,8 +27,9 @@ from repro_torch.core.tensor_format import PackedTensor
 
 from .api import (ModelConfig, ModelFamily, ParamSpec, init_from_specs,
                   register_family, ring_prologue, torch_dtype)
-from .layers import (AttnParams, MlpParams, QuantisedKV, attn_block,
-                     attn_decode, embed_lookup, linear, rms_norm, rope_tables,
+from .layers import (AttnParams, MlpParams, MoeParams, QuantisedKV,
+                     attn_block, attn_decode, embed_lookup, linear,
+                     moe_block, moe_block_out, rms_norm, rope_tables,
                      step_geometry, swiglu)
 
 
@@ -51,14 +54,32 @@ def layer_param_specs(cfg: ModelConfig, n_layers: int) -> dict:
         p["q_norm"] = ParamSpec((L, hd), ("layers", None), pd)
         p["k_norm"] = ParamSpec((L, hd), ("layers", None), pd)
     if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet")
-    F = cfg.d_ff
-    p.update({
-        "w_gate": ParamSpec((L, D, F), ("layers", "fsdp", "mlp"), pd),
-        "w_up": ParamSpec((L, D, F), ("layers", "fsdp", "mlp"), pd),
-        "w_down": ParamSpec((L, F, D), ("layers", "mlp", "fsdp"), pd),
-    })
+        E, F = cfg.n_experts, cfg.dff_expert
+        p.update({
+            "w_router": ParamSpec((L, D, E), ("layers", "fsdp", None), pd),
+            "we_gate": ParamSpec((L, E, D, F),
+                                 ("layers", "experts", "fsdp", None), pd),
+            "we_up": ParamSpec((L, E, D, F),
+                               ("layers", "experts", "fsdp", None), pd),
+            "we_down": ParamSpec((L, E, F, D),
+                                 ("layers", "experts", None, "fsdp"), pd),
+        })
+        if cfg.n_shared_experts:
+            Fs = cfg.dff_expert * cfg.n_shared_experts
+            p.update({
+                "ws_gate": ParamSpec((L, D, Fs), ("layers", "fsdp", "mlp"),
+                                     pd),
+                "ws_up": ParamSpec((L, D, Fs), ("layers", "fsdp", "mlp"), pd),
+                "ws_down": ParamSpec((L, Fs, D), ("layers", "mlp", "fsdp"),
+                                     pd),
+            })
+    else:
+        F = cfg.d_ff
+        p.update({
+            "w_gate": ParamSpec((L, D, F), ("layers", "fsdp", "mlp"), pd),
+            "w_up": ParamSpec((L, D, F), ("layers", "fsdp", "mlp"), pd),
+            "w_down": ParamSpec((L, F, D), ("layers", "mlp", "fsdp"), pd),
+        })
     return p
 
 
@@ -89,29 +110,48 @@ def _layer_attn_params(lp) -> AttnParams:
                       lp.get("q_norm"), lp.get("k_norm"))
 
 
+def _moe_params(cfg: ModelConfig, lp) -> MoeParams:
+    return MoeParams(
+        lp["w_router"], lp["we_gate"], lp["we_up"], lp["we_down"],
+        shared=(MlpParams(lp["ws_gate"], lp["ws_up"], lp["ws_down"])
+                if cfg.n_shared_experts else None))
+
+
+def _mlp_params(lp) -> MlpParams:
+    return MlpParams(lp["w_gate"], lp["w_up"], lp["w_down"])
+
+
 def _layer_body(cfg: ModelConfig, x, lp, window: int, positions):
-    """One decoder layer. x: (B, T, D)."""
+    """One decoder layer. x: (B, T, D). Returns (x, the MoE router's
+    load-balancing loss: 0.0 for a dense MLP)."""
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
     x = x + attn_block(h, _layer_attn_params(lp), positions, cfg, window)
     h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + swiglu(h, MlpParams(lp["w_gate"], lp["w_up"], lp["w_down"]))
+    if cfg.n_experts:
+        y, aux = moe_block(h, _moe_params(cfg, lp), cfg)
+    else:
+        y, aux = swiglu(h, _mlp_params(lp)), 0.0
+    return x + y, aux
 
 
 def _scan_layers(cfg: ModelConfig, x, layers, positions):
     """The reference's scan over the stacked layers as a loop, each layer
-    at its window from ``cfg.window_pattern()``. Under autograd,
-    ``cfg.remat`` "full" (and "dots": the port has no per-op save policy)
-    keeps only each layer's input and recomputes the layer in the
-    backward pass."""
+    at its window from ``cfg.window_pattern()``, summing the layers' aux
+    losses (f32; 0.0 for a dense stack). Under autograd, ``cfg.remat``
+    "full" (and "dots": the port has no per-op save policy) keeps only each
+    layer's input and recomputes the layer in the backward pass. Returns
+    (x, aux)."""
     remat = cfg.remat in ("full", "dots") and torch.is_grad_enabled()
+    aux = 0.0
     for i, window in enumerate(cfg.window_pattern()):
         args = (cfg, x, _layer(layers, i), int(window), positions)
         if remat:
-            x = torch.utils.checkpoint.checkpoint(_layer_body, *args,
-                                                  use_reentrant=False)
+            x, a = torch.utils.checkpoint.checkpoint(_layer_body, *args,
+                                                     use_reentrant=False)
         else:
-            x = _layer_body(*args)
-    return x
+            x, a = _layer_body(*args)
+        aux = aux + a
+    return x, aux
 
 
 def apply(params, batch, cfg: ModelConfig):
@@ -129,7 +169,7 @@ def apply(params, batch, cfg: ModelConfig):
         x = torch.cat([batch["vis_embed"].to(dt), x], dim=1)
         T = x.shape[1]
     positions = torch.arange(T, device=tokens.device)
-    x = _scan_layers(cfg, x, params["layers"], positions)
+    x, _ = _scan_layers(cfg, x, params["layers"], positions)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(x, params, cfg).float()
 
@@ -227,7 +267,10 @@ def decode_step(params, state, batch, cfg: ModelConfig):
                             _at(caches[g][0], j), _at(caches[g][1], j),
                             geos[g], cfg)
         h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + swiglu(h, MlpParams(lp["w_gate"], lp["w_up"], lp["w_down"]))
+        if cfg.n_experts:   # no load-balancing loss: nothing reads it
+            x = x + moe_block_out(h, _moe_params(cfg, lp), cfg)
+        else:
+            x = x + swiglu(h, _mlp_params(lp))
     new_state = {**st, "pos": pos + adv}
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(x, params, cfg).float(), new_state
@@ -243,20 +286,29 @@ def _unembed(x, params, cfg: ModelConfig):
 
 def pack_layouts(cfg: ModelConfig) -> dict:
     """Matmul layouts for serving from packed quantised weights: tensor path
-    → (n_lead, n_contract) — the reference's declarations for a dense
-    stack. The embedding table packs too, tied or not (rows
-    gather-dequantise through ``embed_lookup``; a tied table also serves
-    the logits through ``dequant_matmul_t``)."""
+    → (n_lead, n_contract), the reference's declarations. Expert stacks
+    carry two lead dims (layers, experts); a layer's view streams every
+    expert through ``dequant_matmul``'s lead dim. The router stays dense
+    (a small (D, E) matmul feeding the top-k dispatch). The embedding table
+    packs too, tied or not (rows gather-dequantise through
+    ``embed_lookup``; a tied table also serves the logits through
+    ``dequant_matmul_t``)."""
     lay = {
         "['layers']['wq']": (1, 1),
         "['layers']['wk']": (1, 1),
         "['layers']['wv']": (1, 1),
         "['layers']['wo']": (1, 2),
-        "['layers']['w_gate']": (1, 1),
-        "['layers']['w_up']": (1, 1),
-        "['layers']['w_down']": (1, 1),
-        "['embed']": (0, 1),
     }
+    if cfg.n_experts:
+        for name in ("we_gate", "we_up", "we_down"):
+            lay[f"['layers']['{name}']"] = (2, 1)
+        if cfg.n_shared_experts:
+            for name in ("ws_gate", "ws_up", "ws_down"):
+                lay[f"['layers']['{name}']"] = (1, 1)
+    else:
+        for name in ("w_gate", "w_up", "w_down"):
+            lay[f"['layers']['{name}']"] = (1, 1)
+    lay["['embed']"] = (0, 1)
     if not cfg.tie_embeddings:
         lay["['unembed']"] = (0, 1)
     return lay

@@ -49,7 +49,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.plan import flat_with_paths, map_with_paths
+from repro_torch.core.plan import build_plan, flat_with_paths, map_with_paths
 from repro_torch.core.tensor_format import PackedTensor
 from repro_torch.models.api import (ModelConfig, get_family, resolve_device,
                                     torch_dtype)
@@ -79,6 +79,41 @@ def host_to_device(buf: np.ndarray, device):
 def params_to(params, device):
     """Move a params tree (tensors and PackedTensors) to ``device``."""
     return map_with_paths(lambda _, x: x.to(device), params)
+
+
+def build_packed_engine(cfg: ModelConfig, spec: str, leaves, *,
+                        validate: bool = True, **kw):
+    """A packed engine over the parameter leaves ``leaves`` quantised to the
+    format ``spec`` one leaf at a time. ``leaves`` yields ``(path, tensor)``
+    pairs: ``init_leaves`` draws seeded ones as they are asked for,
+    ``flat_with_paths`` gives those of a tree in memory. The plan is built
+    from meta tensors of the family's parameter specs, and each leaf is
+    quantised and packed as it arrives (``QuantisationPlan.pack_leaf``, an
+    expert stack one layer at a time) and dropped, so no f32 tree is held
+    whole (qwen2-moe-a2.7b full is 57.3 GB in f32, one expert stack
+    16.6 GB). The packed tensors equal those of ``from_quantised`` over the
+    same leaves. ``validate=True`` verifies every packed tensor
+    (``QuantisationPlan.verify_packed``); ``kw`` goes to the engine.
+    Returns (engine, the plan's bits per parameter over the leaves)."""
+    fam = get_family(cfg.family)
+    layouts = fam.pack_layouts(cfg)
+    if not layouts:
+        raise ValueError(f"family {cfg.family!r} declares an empty pack "
+                         "layout: no tensor can serve packed")
+    specs = fam.param_specs(cfg)
+    plan = build_plan(map_with_paths(
+        lambda _, s: torch.empty(s.shape, dtype=torch_dtype(s.dtype),
+                                 device="meta"), specs), spec)
+    packed, bits, n = {}, 0.0, 0
+    for name, x in leaves:
+        bits += plan.leaf_bits(name, x) * x.numel()
+        n += x.numel()
+        packed[name] = plan.pack_leaf(name, x, layouts)
+        del x       # the next leaf is drawn with this one freed
+    params = map_with_paths(lambda name, _: packed.pop(name), specs)
+    if validate:
+        plan.verify_packed(params)
+    return ServeEngine(cfg, params, **kw), bits / max(n, 1)
 
 
 @dataclass

@@ -1,8 +1,9 @@
 """On the card: the CUDA kernels of the quantised-KV and tied-unembed path
 (``block_quant`` and its paired k + v write ``block_quant_kv``,
-``decode_attention_quant``, ``dequant_matmul_t``), and both matmul kernels
-at the teacher-forcing M of ``apply`` (M = B·T up to 2048), against
-their plain torch versions on the same inputs. Every test here needs an
+``decode_attention_quant``, ``dequant_matmul_t``), both matmul kernels
+at the teacher-forcing M of ``apply`` (M = B·T up to 2048), and
+``dequant_matmul`` with the expert lead dim at the MoE configs' expert
+shapes, against their plain torch versions on the same inputs. Every test here needs an
 NVIDIA GPU and skips elsewhere; the file imports nothing of JAX, so it runs
 on a machine that has only the port.
 
@@ -533,6 +534,49 @@ def test_dequant_matmul_at_teacher_forcing_m(cuda_device, M, K, N):
         _, geo, _, _ = dqm._geometry(True, 1, M, K, N, 4, 8,
                                      cuda_device.index or 0)
         assert geo.splits == 1 and geo.m_tiles == 64
+    hold_on_card(y, dequant_matmul_ref(*args, 64, 4))
+
+
+# (E, K, N) of the expert stacks: qwen2-moe-a2.7b's gate/up and down (K =
+# 1408 is one whole-K nibble tile: 1408 is not a multiple of 256), then
+# llama4-scout-17b-a16e's (N = 8192 takes 8-byte code loads)
+EXPERT_SHAPES = [(60, 2048, 1408), (60, 1408, 2048), (16, 5120, 8192),
+                 (16, 8192, 5120)]
+
+
+def expert_args(E, M, K, N, seed, device):
+    """bf16 x (E, M, K) and a babsmax64:n4-shaped expert stack: codes (E,
+    K/2, N) nibble-packed along K, bf16 scales (E, K, N/64), 16 sorted
+    codepoints."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(E, M, K, generator=gen, device=device).to(torch.bfloat16)
+    codes = torch.randint(0, 16, (E, K, N), generator=gen, device=device,
+                          dtype=torch.int32).to(torch.uint8)
+    scales = (torch.rand(E, K, N // 64, generator=gen, device=device) * 0.05
+              + 0.01).to(torch.bfloat16)
+    cb = torch.sort(torch.randn(16, generator=gen, device=device)).values
+    return x, pack_nibbles(codes).contiguous(), scales, cb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E,K,N", EXPERT_SHAPES)
+@pytest.mark.parametrize("M", [1, 4])
+def test_dequant_matmul_expert_lead_dim(cuda_device, E, K, N, M):
+    """The MoE expert stacks at their serving capacity (4 rows an expert):
+    one launch for all E experts, counted as a lead-dim launch, reruns
+    bitwise equal, every expert held to the plain version; no K split."""
+    args = expert_args(E, M, K, N, E + K + M, cuda_device)
+    before, lead_before = dqm.launches, dqm.lead_launches
+    y = ops.dequant_matmul(*args, block=64, bits=4)
+    again = ops.dequant_matmul(*args, block=64, bits=4)
+    torch.cuda.synchronize()
+    assert (dqm.launches, dqm.lead_launches) == (before + 2, lead_before + 2)
+    assert y.shape == (E, M, N) and torch.equal(y, again)
+    _, geo, _, _ = dqm._geometry(True, E, M, K, N, 4, 8,
+                                 cuda_device.index or 0)
+    assert geo.splits == 1
+    assert geo.vec == (8 if N > 2048 else 4)
+    assert geo.chunks == K // 128
     hold_on_card(y, dequant_matmul_ref(*args, 64, 4))
 
 

@@ -253,6 +253,11 @@ def _meta_engine(arch):
                         scales=3_932_160, codebooks=576, dense=76_800)),
     ("deepseek-7b", dict(total=3_671_999_040, codes=3_455_057_920,
                          scales=215_941_120, codebooks=576, dense=999_424)),
+    # 12 packed leaves, the expert stacks (24, 60, 2048, 1408) among them;
+    # the router (24, 2048, 60) and the norms stay dense f32
+    ("qwen2-moe-a2.7b", dict(total=7_615_734_528, codes=7_156_269_056,
+                             scales=447_266_816, codebooks=768,
+                             dense=12_197_888)),
 ])
 def test_full_weight_bytes_from_shapes(arch, expect):
     """Resident bytes of the full configs follow from shapes alone, so they
