@@ -106,8 +106,39 @@ Phases, each printed as JSON lines:
    dispatches the CPU would have sent elsewhere). The kernel phase also
    holds ``dequant_matmul`` with the lead dim at qwen2-moe's (E = 60) and
    llama4-scout's (E = 16) expert shapes, M = 4, beside one ``torch.bmm``
-   on the dequantised bf16 stack, and at qwen2-moe's 2-D projections.
-10. the kernels summary line, then ``{"ok": true, "device": ...}``.
+   on the dequantised bf16 stack, and at qwen2-moe's 2-D projections. The
+   q8 run's CPU hold is made on a second card engine of 4 of the 24
+   layers at full width (``MOE_HOLD_LAYERS``), served the same requests.
+10. whisper (the encoder-decoder family) at whisper-large-v3 full (32
+   encoder and 32 decoder layers, d 1280, 20 heads of 64, vocab 51866,
+   1500 frames, tied), babsmax64:n4 packed, 4 slots, kv_len 256, chunk 8,
+   dense and q8 self-attention caches: six requests of 8-token prompts and
+   16 new tokens, three with seeded frames, one text-only in a slot whose
+   predecessor had frames (its cross K/V rows must be exactly zero after
+   admission), one repeating another's prompt and frames in another slot
+   (the same tokens). Each admission with frames encodes on the card and
+   projects the cross K/V: 256 ``dequant_matmul`` launches at M = 1500; a
+   text-only one none. Each step launches ``dequant_matmul`` 256 times and
+   ``dequant_matmul_t`` once (the tied 51866 x 1280 table, one half-split
+   nibble tile), with q8 also 32 ``block_quant_kv`` and 32
+   ``decode_attention_quant``. Held: one request's cross K/V against one
+   CPU ``cross_prefill`` at full depth per layer, and the prefill step and
+   first decode step against the CPU plain path at full depth fed the
+   card's cross K/V; weight, KV and cross-K/V bytes against the
+   reference's counts; a profiled run; then ``launch.serve --arch
+   whisper-large-v3`` from the command line. The kernel phase also holds
+   ``dequant_matmul`` at whisper's shapes for M = 4, 32 and 1500,
+   ``dequant_matmul_t`` at (51866, 1280), ``block_quant`` at 20 heads of
+   64 and ``decode_attention_quant`` at H = K = 20, hd 64, and at
+   internvl2-26b's H = 48, K = 8, hd 128.
+11. internvl (the VLM family) at internvl2-26b full width (d 6144, 48 heads
+   over 8 KV heads of 128, d_ff 16384, vocab 92553) and 2 of its 48 layers:
+   packed with the embedding in byte codes and the unembed dense, served
+   with a q8 cache (14 ``dequant_matmul``, 2 ``block_quant_kv`` and 2
+   ``decode_attention_quant`` launches a step), and its ``apply`` over 256
+   seeded patch tokens of width 3200 and a 64-token text held to the CPU
+   plain path at the same depth.
+12. the kernels summary line, then ``{"ok": true, "device": ...}``.
 
 Every count of kernel launches is set to 0 just before a serve run and read
 just after it. Each profile phase also holds every ``decode_attention_quant``
@@ -212,6 +243,34 @@ LAUNCHES_PER_STEP = {
                        "decode_attention_quant": 24},
 }
 MOE_LEAD_LAUNCHES = 72            # of them with the expert lead dim E = 60
+# the q8 run's CPU hold: a second engine of this many layers at full width
+MOE_HOLD_LAYERS = 4
+LAUNCHES_PER_STEP[MOE_ARCH + " q8 hold"] = {
+    "dequant_matmul": 10 * MOE_HOLD_LAYERS + 1,
+    "block_quant": MOE_HOLD_LAYERS, "decode_attention_quant": MOE_HOLD_LAYERS}
+WHISPER_ARCH = "whisper-large-v3"
+# whisper's (K, N) with launches per decode step and per admission with
+# frames (at M = enc_seq = 1500); the tied (V, D) table
+WHISPER_PROJECTIONS = [
+    ((1280, 1280), 192, 192, "self wq+wk+wv+wo, cross wq+wo (admission: "
+                             "encoder wq+wk+wv+wo, cross wk+wv)"),
+    ((1280, 5120), 32, 32, "w_in"), ((5120, 1280), 32, 32, "w_out")]
+WHISPER_TABLE = (51866, 1280)
+WHISPER_ENC_SEQ = 1500
+WHISPER_ADMIT_LAUNCHES = 256
+WHISPER_COMPARE_STEPS = 2         # the prefill step and the first decode step
+# 32 decoder layers x (4 self + 2 cross + 2 MLP) + the tied unembed; q8 adds
+# one paired KV write and one attention read a layer
+LAUNCHES_PER_STEP[WHISPER_ARCH] = {"dequant_matmul": 256,
+                                   "dequant_matmul_t": 1}
+LAUNCHES_PER_STEP[WHISPER_ARCH + " q8"] = {
+    "dequant_matmul": 256, "dequant_matmul_t": 1, "block_quant": 32,
+    "decode_attention_quant": 32}
+INTERNVL_ARCH = "internvl2-26b"
+INTERNVL_LAYERS = 2               # of 48: full width, cut depth (PERF.md §4)
+LAUNCHES_PER_STEP[INTERNVL_ARCH + " q8"] = {
+    "dequant_matmul": 7 * INTERNVL_LAYERS, "block_quant": INTERNVL_LAYERS,
+    "decode_attention_quant": INTERNVL_LAYERS}
 # the device kernels of decode_attention.cu (profile phase: one a call)
 ATTN_DEVICE_KERNELS = ("attn_rows_kernel", "attn_mma_kernel")
 LAUNCH_RUN = 200                  # calls per launch-bound reading
@@ -227,7 +286,21 @@ WEIGHT_BYTES = {
                       scales=31_242_240, codebooks=512, dense=297_472),
     MOE_ARCH: dict(total=7_615_734_528, codes=7_156_269_056,
                    scales=447_266_816, codebooks=768, dense=12_197_888),
+    # the reference's packing rules on abstract arrays (tests/
+    # test_torch_whisper.py, test_torch_internvl.py): 17 packed tensors,
+    # the tied table once; internvl's embedding in byte codes (odd vocab),
+    # its unembed and projector dense
+    WHISPER_ARCH: dict(total=815_977_808, codes=767_197_440,
+                       scales=47_949_840, codebooks=1_088, dense=829_440),
+    INTERNVL_ARCH: dict(total=3_505_222_336, codes=958_715_904,
+                        scales=42_149_568, codebooks=512,
+                        dense=2_504_356_352),
 }
+# 4 slots x (256 + 8) slots a layer; the cross K/V, 4 slots x 1500 frames
+# x 32 layers x 1280 x 2 (k and v) in bf16, and pos
+WHISPER_KV_BYTES = {"dense": 173_015_040, "q8": 91_914_240}
+WHISPER_OTHER_BYTES = 983_040_000 + 16
+INTERNVL_KV_BYTES = 4_460_544                # q8, 2 layers
 
 
 def emit(**kw):
@@ -516,14 +589,24 @@ ATTN_CASES = [
 ]
 
 
-def attention_inputs(dev, gen, T, S, starts, fmt):
-    """gemma3-1b's attention read (B=4, H=4, K=1, hd=256): bf16 q, K/V
-    codes written by the port's own quantise_kv, positions from ``starts``
-    (the first query position of each row). Returns the kernel's
-    positional arguments and the code bits."""
+# (T, S, first query position of each of the 4 rows, (H, K, hd)) of the
+# linear caches of whisper-large-v3 (MHA, 20 heads of 64) and internvl2-26b
+# (48 heads over 8 KV heads of 128), kv_len 256 + chunk 8
+FAMILY_ATTN_CASES = [
+    (1, 264, [200, 17, 100, 255], (20, 20, 64), WHISPER_ARCH),
+    (8, 264, [200, 8, 100, 248], (20, 20, 64), WHISPER_ARCH),
+    (1, 264, [200, 17, 100, 255], (48, 8, 128), INTERNVL_ARCH),
+]
+
+
+def attention_inputs(dev, gen, T, S, starts, fmt, heads=(4, 1, 256)):
+    """An attention read of B=4 rows and ``heads`` (H, K, hd), gemma3-1b's
+    by default: bf16 q, K/V codes written by the port's own quantise_kv,
+    positions from ``starts`` (the first query position of each row).
+    Returns the kernel's positional arguments and the code bits."""
     from repro_torch.models.layers import quantise_kv
     from repro_torch.serve.cache import kv_bits, kv_codebook
-    B, H, K, hd = 4, 4, 1, 256
+    B, (H, K, hd) = 4, heads
     bits = kv_bits(fmt)
     cb = kv_codebook(fmt, dev)
     kc, ks = quantise_kv(torch.randn(B, S, K, hd, generator=gen, device=dev),
@@ -545,15 +628,15 @@ def attn_instance(geo, bits, hd):
 
 
 def attention_case(mods, dev, gen, flush, T, S, ring, window, starts, fmt,
-                   attn_ptxas):
-    """gemma3-1b's attention read (``attention_inputs``), called twice with
-    bitwise-equal results, with the geometry it ran and its instance's
-    ptxas figures. Library: scaled_dot_product_attention on K/V dequantised
-    to bf16 beforehand, under the same boolean mask."""
+                   attn_ptxas, heads=(4, 1, 256)):
+    """An attention read (``attention_inputs``: gemma3-1b's, or ``heads``),
+    called twice with bitwise-equal results, with the geometry it ran and
+    its instance's ptxas figures. Library: scaled_dot_product_attention on
+    K/V dequantised to bf16 beforehand, under the same boolean mask."""
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_quant_ref, dequant_kv_ref)
     from repro_torch.models.layers import attention_mask
-    args, bits = attention_inputs(dev, gen, T, S, starts, fmt)
+    args, bits = attention_inputs(dev, gen, T, S, starts, fmt, heads)
     q, kc, ks, vc, vs, cb, qp = args
     B, _, H, hd = q.shape
     K = kc.shape[2]
@@ -589,7 +672,7 @@ def attention_case(mods, dev, gen, flush, T, S, ring, window, starts, fmt,
     flops = 4 * H * hd * pairs
     return dict(
         T=T, S=S, ring=ring, window=window, fmt=fmt, starts=starts,
-        visible_slots=slots, bytes=nbytes, flops=flops,
+        heads=[H, K, hd], visible_slots=slots, bytes=nbytes, flops=flops,
         bound_ms=bound_ms(nbytes, flops), bound_by=bound_by(nbytes, flops),
         geometry=geo._asdict(), bitwise_repeat=True,
         instance=attn_instance(geo, bits, hd),
@@ -657,29 +740,65 @@ def kernel_phase(mods, dev, tc_ptxas, attn_ptxas):
             record("decode_attention_quant", attention_case(
                 mods, dev, gen, flush, T, S, ring, window, starts, fmt,
                 attn_ptxas))
+    family_rows(mods, dev, gen, cb4, cb8, flush, tc_ptxas, attn_ptxas,
+                record)
     del flush
     torch.cuda.empty_cache()
     return rows
+
+
+def family_rows(mods, dev, gen, cb4, cb8, flush, tc_ptxas, attn_ptxas,
+                record):
+    """The kernels at the shapes of phases 10 and 11: ``dequant_matmul`` at
+    whisper's projections for M = 4, 32 (decode, prefill) and 1500 (the
+    encoder and the cross K/V at admission); ``dequant_matmul_t`` at its
+    tied (51866, 1280) table, one half-split nibble tile of 25933 byte
+    rows, M = 1, 4, 32 at 4 and 8 bits; ``block_quant`` at 20 heads of 64
+    (4 and 32 tokens of 4 slots); ``decode_attention_quant`` at whisper's
+    and internvl's heads, q8 and q4 (internvl q8)."""
+    for (K, N), per_step, per_admit, names in WHISPER_PROJECTIONS:
+        for M in (4, 32, WHISPER_ENC_SEQ):
+            record("dequant_matmul", matmul_case(
+                mods, dev, gen, cb4, flush, K, N, M, 4), model=WHISPER_ARCH,
+                weights=names, launches_per_step=per_step,
+                launches_per_admission=per_admit)
+    V, D = WHISPER_TABLE
+    for bits in (4, 8):
+        for M in (1, 4, 32):
+            record("dequant_matmul_t", matmul_t_case(
+                mods, dev, gen, cb4 if bits == 4 else cb8, flush, V, D, M,
+                bits, tc_ptxas), model=WHISPER_ARCH, weights="tied unembed")
+    for fmt in ("q8", "q4"):
+        for n in (80, 640):
+            record("block_quant", block_quant_case(
+                mods, dev, gen, flush, n, 64, fmt), model=WHISPER_ARCH)
+        for T, S, starts, heads, model in FAMILY_ATTN_CASES:
+            if model == INTERNVL_ARCH and fmt == "q4":
+                continue
+            record("decode_attention_quant", attention_case(
+                mods, dev, gen, flush, T, S, False, 0, starts, fmt,
+                attn_ptxas, heads), model=model)
 
 
 # ---------------------------------------------------------------------------
 # Phases 3 to 5: serving
 
 
-def build_engine(arch, dev, seed=0, kv_len=256, kv_format=""):
-    """``arch`` full at seed ``seed``, served packed (``SPEC``) on 4 slots
-    with prefill chunk 8 by the port's builder, which draws and packs one
-    leaf at a time (``build_packed_engine``): deepseek-7b's f32 tree is
-    about 28 GB, qwen2-moe-a2.7b's 57.3 GB. Returns (engine, seconds)."""
+def build_engine(arch, dev, seed=0, kv_len=256, kv_format="", **cfg_kw):
+    """``arch`` full (``cfg_kw`` may cut its depth) at seed ``seed``, served
+    packed (``SPEC``) on 4 slots with prefill chunk 8 by the port's
+    builder, which draws and packs one leaf at a time
+    (``build_packed_engine``): deepseek-7b's f32 tree is about 28 GB,
+    qwen2-moe-a2.7b's 57.3 GB. Returns (engine, seconds)."""
     from repro_torch import configs
-    from repro_torch.models import transformer
-    from repro_torch.models.api import init_leaves
+    from repro_torch.models.api import get_family, init_leaves
     from repro_torch.serve.engine import build_packed_engine
-    cfg = configs.get_config(arch, "full").replace(kv_format=kv_format)
+    cfg = configs.get_config(arch, "full").replace(kv_format=kv_format,
+                                                   **cfg_kw)
     t0 = time.monotonic()
     eng, _ = build_packed_engine(
-        cfg, SPEC, init_leaves(transformer.param_specs(cfg), seed=seed,
-                               device=dev),
+        cfg, SPEC, init_leaves(get_family(cfg.family).param_specs(cfg),
+                               seed=seed, device=dev),
         batch_slots=4, kv_len=kv_len, prefill_chunk=8, device=dev)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -702,12 +821,15 @@ class StepRecorder:
     """Wraps a family's decode_step: records each step's positions, batch,
     logits (to the host) and wall time after a device synchronise; with
     ``cache_decodes`` = n, also the cache stacks as the step left them (to
-    the host), for every step until n decode steps have been recorded."""
+    the host), for every step until n decode steps have been recorded; with
+    ``snapshot`` (state keys), those entries of the first step's state as
+    it found them (to the host: whisper's cross K/V)."""
 
-    def __init__(self, step, keep_logits, cache_decodes=0):
+    def __init__(self, step, keep_logits, cache_decodes=0, snapshot=()):
         self.step = step
         self.keep_logits = keep_logits
         self.cache_decodes = cache_decodes
+        self.snapshot = snapshot
         self.decodes = 0
         self.records = []
 
@@ -716,6 +838,9 @@ class StepRecorder:
         if self.keep_logits:
             rec.update(pos=state["pos"].cpu(),
                        batch={k: v.cpu() for k, v in batch.items()})
+        if self.snapshot and not self.records:
+            rec["state_in"] = {k: state[k].to("cpu", copy=True)
+                               for k in self.snapshot}
         t0 = time.monotonic()
         logits, state = self.step(params, state, batch, cfg)
         torch.cuda.synchronize()
@@ -730,19 +855,25 @@ class StepRecorder:
         return logits, state
 
 
-def serve(eng, mods, requests, keep_logits, warm=True, cache_decodes=0):
-    """Serve ``requests`` ((prompt, max_new) pairs) after an optional warm-up,
-    with every kernel's launch count set to 0 just before the run and read
-    just after it (``StepRecorder`` records the steps)."""
+def serve(eng, mods, requests, keep_logits, warm=True, cache_decodes=0,
+          order=None, snapshot=()):
+    """Serve ``requests`` ((prompt, max_new) pairs, or (prompt, max_new,
+    frames) triples; rid = index) after an optional warm-up, submitted in
+    ``order`` (rids; default in turn), with every kernel's launch count set
+    to 0 just before the run and read just after it (``StepRecorder``
+    records the steps)."""
     from repro_torch.serve.engine import Request
     if warm:
         eng.submit(Request(prompt=requests[0][0], max_new_tokens=2, rid=-1))
         eng.run()
         torch.cuda.synchronize()
-    rec = StepRecorder(eng.fam.decode_step, keep_logits, cache_decodes)
+    rec = StepRecorder(eng.fam.decode_step, keep_logits, cache_decodes,
+                       snapshot)
     eng.fam = dataclasses.replace(eng.fam, decode_step=rec)
-    for rid, (p, n) in enumerate(requests):
-        eng.submit(Request(prompt=p, max_new_tokens=n, rid=rid))
+    for rid in (range(len(requests)) if order is None else order):
+        p, n, *frames = requests[rid]
+        eng.submit(Request(prompt=p, max_new_tokens=n, rid=rid,
+                           frames=frames[0] if frames else None))
     steps0 = eng.steps_total
     for m in mods.values():
         m.launches = 0
@@ -768,14 +899,15 @@ def serve(eng, mods, requests, keep_logits, warm=True, cache_decodes=0):
     return done, stats, rec.records
 
 
-def check_run(arch, done, stats, requests, lead_per_step=0):
+def check_run(arch, done, stats, requests, lead_per_step=0, admitted=None):
     """Every request finished with all its tokens, and each kernel ran its
     designed number of launches per step (and the others none),
-    ``dequant_matmul`` ``lead_per_step`` of them with a lead dim. ``arch``
-    names the row of ``LAUNCHES_PER_STEP``."""
+    ``dequant_matmul`` ``lead_per_step`` of them with a lead dim, besides
+    the launches of admissions (``admitted``: kernel -> launches, made
+    outside the steps). ``arch`` names the row of ``LAUNCHES_PER_STEP``."""
     check(stats["failed"] == 0 and stats["done"] == len(requests) and
           sorted(len(g.tokens) for g in done) ==
-          sorted(n for _, n in requests),
+          sorted(r[1] for r in requests),
           f"{arch}: requests did not all finish: {stats}")
     lead = stats["dequant_matmul_lead_launches"]
     check(lead == lead_per_step * stats["steps"],
@@ -783,10 +915,11 @@ def check_run(arch, done, stats, requests, lead_per_step=0):
           f"over {stats['steps']} steps, expected {lead_per_step} per step")
     per_step = LAUNCHES_PER_STEP[arch]
     for name, n in stats["launches"].items():
-        want = per_step.get(name, 0) * stats["steps"]
+        extra = (admitted or {}).get(name, 0)
+        want = per_step.get(name, 0) * stats["steps"] + extra
         check(n == want, f"{arch}: {name} launched {n} times over "
-              f"{stats['steps']} steps, expected {per_step.get(name, 0)} "
-              "per step")
+              f"{stats['steps']} steps and {extra} at admissions, expected "
+              f"{per_step.get(name, 0)} per step")
 
 
 def profile_steps(eng, mods):
@@ -830,10 +963,12 @@ def profile_steps(eng, mods):
                        if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                     "cudaLaunchKernelExC"))
     attn_calls = attn.launches - calls0
-    attn_kernels = sum(e.count for e in kernels
-                       if any(n in e.key for n in ATTN_DEVICE_KERNELS))
+    attn_events = [(e.key[:90], e.count) for e in kernels
+                   if any(n in e.key for n in ATTN_DEVICE_KERNELS)]
+    attn_kernels = sum(n for _, n in attn_events)
     check(attn_kernels == attn_calls, f"decode_attention_quant: "
-          f"{attn_calls} calls made {attn_kernels} device kernels")
+          f"{attn_calls} calls made {attn_kernels} device kernels "
+          f"{attn_events}")
     return dict(
         steps=steps, profiled_wall_ms_per_step=wall_ms / steps,
         attention_calls=attn_calls, attention_device_kernels=attn_kernels,
@@ -1016,7 +1151,7 @@ def dropped_dispatches(choice, E, capacity_factor):
 
 
 def replay_on_cpu(eng, records, card_cache=False, kv_stats=None,
-                  routes=None, route_stats=None):
+                  routes=None, route_stats=None, state_in=None):
     """Replay the card's recorded batches through the plain path on the CPU
     (the same packed weights); yield (card logits, CPU logits, what) for
     every valid position.
@@ -1034,13 +1169,19 @@ def replay_on_cpu(eng, records, card_cache=False, kv_stats=None,
     ``routes`` (the card's expert choices of these steps, a
     ``RouteRecorder``'s calls) routes every MoE call of the replay as the
     card did, through ``route_witness`` (its counts go to
-    ``route_stats``)."""
+    ``route_stats``).
+
+    ``state_in`` (state entries on the host) replaces those entries of the
+    CPU's state: whisper's cross K/V as the card's admissions wrote it, so
+    the decode replay holds the decoder and its kernels, not a second
+    encode."""
     from repro_torch.models import layers
     from repro_torch.serve.engine import alloc_decode_state, params_to
     cpu = torch.device("cpu")
     params = params_to(eng.params, cpu)
     state = alloc_decode_state(eng.fam, eng.cfg, eng.B, eng.kv_len,
                                slack=eng.prefill_chunk, device=cpu)
+    state.update(state_in or {})
     write_kv_pair, route = layers.write_kv_pair, layers.route
     if card_cache:
         layers.write_kv_pair = kv_witness(kv_stats)
@@ -1071,12 +1212,13 @@ def replay_on_cpu(eng, records, card_cache=False, kv_stats=None,
 
 
 def compare_with_cpu(eng, records, card_cache=False, kv_stats=None,
-                     routes=None, route_stats=None):
+                     routes=None, route_stats=None, state_in=None):
     """Hold the card's logits to the plain path's replay (``replay_on_cpu``)
     under ``hold_logits``."""
     worst, n_margin = 0.0, 0
     for got, want, what in replay_on_cpu(eng, records, card_cache,
-                                         kv_stats, routes, route_stats):
+                                         kv_stats, routes, route_stats,
+                                         state_in):
         rel, margin = hold_logits(got, want, what)
         worst = max(worst, rel)
         n_margin += margin
@@ -2532,13 +2674,15 @@ def moe_phase(dev, mods):
     at a time: 4 requests on a dense cache, then on a q8 cache. Each run
     launches ``dequant_matmul`` 241 times a step, 72 of them over the
     expert stacks with their lead dim E = 60 (and with q8, 24
-    ``block_quant_kv`` and 24 ``decode_attention_quant``), is profiled,
-    reports its dropped dispatches per step, and holds its prefill step and
-    first decode step to the CPU plain path at full depth, routed as the
-    card routed (``route_witness``, held by ``hold_route_witness``). Then
-    ``launch.serve`` serves the model from the command line (``moe_cli``).
-    """
-    from repro_torch.serve.engine import Request, ServeEngine
+    ``block_quant_kv`` and 24 ``decode_attention_quant``), is profiled and
+    reports its dropped dispatches per step. The dense run holds its
+    prefill step and first decode step to the CPU plain path at full
+    depth; the q8 run's hold is made on a second engine at full width and
+    ``MOE_HOLD_LAYERS`` layers, serving the same requests (``moe_hold``).
+    Both holds route the CPU as the card routed (``route_witness``, held
+    by ``hold_route_witness``). Then ``launch.serve`` serves the model from
+    the command line (``moe_cli``)."""
+    from repro_torch.serve.engine import ServeEngine
     arch = MOE_ARCH
     t_phase = time.monotonic()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2549,7 +2693,6 @@ def moe_phase(dev, mods):
     check({k: wb[k] for k in WEIGHT_BYTES[arch]} == WEIGHT_BYTES[arch],
           f"{arch} weight_bytes {wb} != {WEIGHT_BYTES[arch]}")
     cfg = eng.cfg
-    L, E = cfg.n_layers, cfg.n_experts
     reqs = short_requests(cfg.vocab)
     runs = []
     for fmt in ("dense", "q8"):
@@ -2560,43 +2703,22 @@ def moe_phase(dev, mods):
                               batch_slots=4, kv_len=256, prefill_chunk=8,
                               device=dev)
             setup = {"engine_s": time.monotonic() - t0}
-        eng.submit(Request(prompt=reqs[0][0], max_new_tokens=2, rid=-1))
-        eng.run()                      # warm-up, not recorded
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        routes = RouteRecorder()
-        with routes.installed():
-            done, stats, records = serve(eng, mods, reqs, keep_logits=True,
-                                         warm=False)
-        check_run(key, done, stats, reqs, lead_per_step=MOE_LEAD_LAUNCHES)
-        check(not eng.degraded, f"{key}: the engine degraded to dense")
-        calls = [c.cpu() for c in routes.calls]
-        check(len(calls) == L * stats["steps"], f"{key}: {len(calls)} "
-              f"routing calls over {stats['steps']} steps of {L} layers")
-        step_calls = [calls[i * L:(i + 1) * L] for i in range(stats["steps"])]
-        dropped = [sum(dropped_dispatches(c, E, cfg.capacity_factor)
-                       for c in cs) / sum(c.numel() for c in cs)
-                   for cs in step_calls]
+        done, stats, records, calls = moe_serve(eng, mods, reqs, key)
         cb = eng.cache_bytes()
         out = dict(phase="moe", arch=arch, kv_format=fmt, **setup,
                    weight_bytes=wb, kv_bytes=cb["kv"],
                    peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
-                   dropped_share_per_step=dropped,
+                   dropped_share_per_step=moe_dropped(cfg, calls,
+                                                      stats["steps"]),
                    step_tokens=[r["T"] for r in records], **stats)
         emit(phase="profile", arch=arch, kv_format=fmt,
              **profile_steps(eng, mods))
-        records = records[:MOE_COMPARE_STEPS]
-        check(records[0]["T"] > 1 and records[-1]["T"] == 1,
-              f"{key}: the compare needs the prefill and a decode step")
         t0 = time.monotonic()
-        rs = route_stats()
-        worst, n = compare_with_cpu(eng, records,
-                                    routes=calls[:len(records) * L],
-                                    route_stats=rs)
-        out.update(cpu_max_rel_logit_err=worst, cpu_margin_tokens=n,
-                   cpu_compared_steps=len(records), cpu_compared_layers=L,
-                   cpu_compare_s=time.monotonic() - t0,
-                   route_witness=hold_route_witness(rs))
+        if fmt == "dense":
+            out.update(moe_compare(eng, records, calls, key),
+                       cpu_compare_s=time.monotonic() - t0)
+        else:
+            out["cpu_hold"] = moe_hold(dev, mods, reqs)
         del records
         out["tokens"] = {g.rid: g.tokens for g in done}
         emit(**out)
@@ -2608,6 +2730,78 @@ def moe_phase(dev, mods):
     runs.append(moe_cli(mods))
     emit(phase="timing", moe_cli_end_s=time.monotonic() - t_phase)
     return runs
+
+
+def moe_serve(eng, mods, reqs, key):
+    """Serve ``reqs`` on a MoE engine after an unrecorded warm-up, recording
+    its steps and the card's routing: (done, stats, records, the expert
+    choices of each layer of each step, on the host). Checks the launches
+    of ``LAUNCHES_PER_STEP[key]``, 3 a layer of them over the expert stacks
+    with the lead dim (``MOE_LEAD_LAUNCHES`` at full depth), and that the
+    engine stayed packed."""
+    from repro_torch.serve.engine import Request
+    L = eng.cfg.n_layers
+    eng.submit(Request(prompt=reqs[0][0], max_new_tokens=2, rid=-1))
+    eng.run()                      # warm-up, not recorded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    routes = RouteRecorder()
+    with routes.installed():
+        done, stats, records = serve(eng, mods, reqs, keep_logits=True,
+                                     warm=False)
+    check_run(key, done, stats, reqs, lead_per_step=3 * L)
+    check(not eng.degraded, f"{key}: the engine degraded to dense")
+    calls = [c.cpu() for c in routes.calls]
+    check(len(calls) == L * stats["steps"], f"{key}: {len(calls)} "
+          f"routing calls over {stats['steps']} steps of {L} layers")
+    return done, stats, records, calls
+
+
+def moe_dropped(cfg, calls, steps):
+    """The share of each step's dispatches dropped past capacity."""
+    L = cfg.n_layers
+    step_calls = [calls[i * L:(i + 1) * L] for i in range(steps)]
+    return [sum(dropped_dispatches(c, cfg.n_experts, cfg.capacity_factor)
+                for c in cs) / sum(c.numel() for c in cs)
+            for cs in step_calls]
+
+
+def moe_compare(eng, records, calls, key):
+    """The prefill step and the first decode step held to the CPU plain
+    path at the engine's depth, routed as the card routed."""
+    L = eng.cfg.n_layers
+    records = records[:MOE_COMPARE_STEPS]
+    check(records[0]["T"] > 1 and records[-1]["T"] == 1,
+          f"{key}: the compare needs the prefill and a decode step")
+    rs = route_stats()
+    worst, n = compare_with_cpu(eng, records,
+                                routes=calls[:len(records) * L],
+                                route_stats=rs)
+    return dict(cpu_max_rel_logit_err=worst, cpu_margin_tokens=n,
+                cpu_compared_steps=len(records), cpu_compared_layers=L,
+                route_witness=hold_route_witness(rs))
+
+
+def moe_hold(dev, mods, reqs):
+    """The q8 run's CPU hold: a second engine of qwen2-moe-a2.7b at full
+    width and ``MOE_HOLD_LAYERS`` layers with a q8 cache, serving the same
+    requests with the launches of its depth, its prefill step and first
+    decode step held to the CPU plain path at that depth."""
+    t0 = time.monotonic()
+    eng, setup_s = build_engine(MOE_ARCH, dev, kv_len=256, kv_format="q8",
+                                n_layers=MOE_HOLD_LAYERS)
+    key = MOE_ARCH + " q8 hold"
+    done, stats, records, calls = moe_serve(eng, mods, reqs, key)
+    t1 = time.monotonic()
+    out = dict(layers=MOE_HOLD_LAYERS, setup_s=setup_s,
+               launches=stats["launches"],
+               tokens={g.rid: g.tokens for g in done},
+               **moe_compare(eng, records, calls, key),
+               cpu_compare_s=time.monotonic() - t1,
+               hold_s=time.monotonic() - t0)
+    del eng, records
+    torch.cuda.empty_cache()
+    return out
 
 
 def moe_cli(mods):
@@ -2646,6 +2840,341 @@ def moe_cli(mods):
     del done
     torch.cuda.empty_cache()
     return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# Phases 10 and 11: the encoder-decoder and vision-language families
+
+
+def whisper_requests(cfg):
+    """The whisper run's six requests (prompt, max_new, frames), rid =
+    index, and the order they are submitted in. r0, r1 and r3 carry
+    distinct seeded frames (``make_batch_fn``'s draw: standard normals of
+    the data pipeline's Philox stream), r2 and r4 are text-only, r5 repeats
+    r1's prompt and frames. The four first requests free their slots after
+    the same step, and r5 is submitted before r4: r5 takes r0's slot and
+    r4 takes r1's, so both reused slots had frames before."""
+    from repro_torch.data.pipeline import make_batch_fn
+    frames = make_batch_fn(cfg, seq=8, batch=3, seed=0)(0)["frames"]
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab,
+                                                (5, 8)).tolist()
+    reqs = [(prompts[0], 16, frames[0]), (prompts[1], 16, frames[1]),
+            (prompts[2], 16, None), (prompts[3], 16, frames[2]),
+            (prompts[4], 16, None), (prompts[1], 16, frames[1])]
+    return reqs, [0, 1, 2, 3, 5, 4]
+
+
+class AdmissionRecorder:
+    """Wraps an engine's ``_admit_cross`` while ``installed()``: per
+    admission its rid, slot, whether it had frames, its seconds (the
+    device synchronised before and after), each kernel's launches and the
+    rows M of every ``dequant_matmul`` call it made; a text-only
+    admission's cross K/V rows are read back right after it (``zero``:
+    every one exactly 0 on the card)."""
+
+    def __init__(self, eng, mods):
+        self.eng, self.mods = eng, mods
+        self.admit = eng._admit_cross
+        self.log = []
+
+    @contextlib.contextmanager
+    def installed(self):
+        self.eng._admit_cross = self
+        try:
+            yield self
+        finally:
+            self.eng._admit_cross = self.admit
+
+    def __call__(self, i, req):
+        from repro_torch.kernels import ops
+        matmul, rows = ops.dequant_matmul, []
+
+        def counting(x, *a, **kw):
+            rows.append(int(x.shape[-2]))
+            return matmul(x, *a, **kw)
+        torch.cuda.synchronize()
+        n0 = {name: m.launches for name, m in self.mods.items()}
+        t0 = time.monotonic()
+        ops.dequant_matmul = counting
+        try:
+            self.admit(i, req)
+        finally:
+            ops.dequant_matmul = matmul
+        torch.cuda.synchronize()
+        entry = dict(rid=req.rid, slot=i, frames=req.frames is not None,
+                     s=time.monotonic() - t0, rows=sorted(set(rows)),
+                     launches={n: m.launches - n0[n]
+                               for n, m in self.mods.items()})
+        if req.frames is None:
+            st = self.eng._state
+            entry["zero"] = all(int(torch.count_nonzero(st[k][:, i])) == 0
+                                for k in ("xk", "xv"))
+        self.log.append(entry)
+
+
+def check_admissions(key, log, reqs, order):
+    """Every request admitted once, in ``order``: one with frames made
+    ``WHISPER_ADMIT_LAUNCHES`` ``dequant_matmul`` launches, all at M =
+    ``WHISPER_ENC_SEQ``, and no other kernel's; a text-only one made none
+    and left its slot's cross K/V exactly zero. Returns the launches of
+    all admissions, per kernel."""
+    check([e["rid"] for e in log] == list(order),
+          f"{key}: admissions {[e['rid'] for e in log]}, expected {order}")
+    total = {}
+    for e in log:
+        want = ({"dequant_matmul": WHISPER_ADMIT_LAUNCHES}
+                if reqs[e["rid"]][2] is not None else {})
+        got = {n: k for n, k in e["launches"].items() if k}
+        check(got == want, f"{key}: admission of r{e['rid']} launched "
+              f"{got}, expected {want}")
+        check(e["rows"] == ([WHISPER_ENC_SEQ] if want else []),
+              f"{key}: admission of r{e['rid']} ran rows {e['rows']}")
+        check(e.get("zero", True), f"{key}: r{e['rid']} (text-only) found "
+              "nonzero cross K/V rows in its slot")
+        for n, k in got.items():
+            total[n] = total.get(n, 0) + k
+    return total
+
+
+def hold_encoder(eng, frames, card, slot):
+    """One CPU ``cross_prefill`` at full depth on the same packed weights,
+    against the card's cross K/V rows of ``slot`` (``card``: xk, xv on the
+    host), layer by layer: max error within 5e-2·max|CPU| of each layer's
+    xk and xv. Returns the worst ratio, per entry, and the CPU's seconds."""
+    from repro_torch.serve.engine import params_to
+    params = params_to(eng.params, torch.device("cpu"))
+    t0 = time.monotonic()
+    with torch.inference_mode():
+        want = eng.fam.cross_prefill(params, torch.from_numpy(frames)[None],
+                                     eng.cfg)
+    out = {"cpu_encode_s": time.monotonic() - t0}
+    for key in ("xk", "xv"):
+        got = card[key][:, slot].float()            # (Ld, enc_seq, H, hd)
+        w = want[key][:, 0].float()
+        rel = ((got - w).abs().amax(dim=(1, 2, 3))
+               / w.abs().amax(dim=(1, 2, 3)))
+        check(bool((rel <= 5e-2).all()), f"whisper encoder: {key} of "
+              f"{int((rel > 5e-2).sum())} layer(s) off by more than 5e-2 "
+              f"of max|{key}| (worst {float(rel.max())})")
+        out[f"{key}_max_rel_err"] = float(rel.max())
+    return out
+
+
+def whisper_phase(dev, mods):
+    """whisper-large-v3 full, babsmax64:n4 packed (seeded weights drawn and
+    packed one leaf at a time), 4 slots, kv_len 256, chunk 8: the six
+    requests of ``whisper_requests`` on a dense self-attention cache, then
+    on a q8 one (phase 10 of the module docstring). Each run checks every
+    admission (``check_admissions``) and the launches a step besides them,
+    r5's tokens against r1's, the slots reused, weight, KV and cross-K/V
+    bytes, and is profiled; the dense run holds r0's cross K/V to one CPU
+    encode at full depth, and both runs hold their prefill step and first
+    decode step to the CPU plain path at full depth fed the card's cross
+    K/V. Then ``launch.serve`` from the command line (``whisper_cli``)."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    arch = WHISPER_ARCH
+    t_phase = time.monotonic()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng, setup_s = build_engine(arch, dev, kv_len=256)
+    setup = {"setup_s": setup_s,
+             "setup_peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+    wb = eng.weight_bytes()
+    check({k: wb[k] for k in WEIGHT_BYTES[arch]} == WEIGHT_BYTES[arch],
+          f"{arch} weight_bytes {wb} != {WEIGHT_BYTES[arch]}")
+    cfg = eng.cfg
+    reqs, order = whisper_requests(cfg)
+    runs = []
+    for fmt in ("dense", "q8"):
+        key = arch if fmt == "dense" else f"{arch} {fmt}"
+        if fmt != "dense":
+            t0 = time.monotonic()
+            eng = ServeEngine(cfg.replace(kv_format=fmt), eng.params,
+                              batch_slots=4, kv_len=256, prefill_chunk=8,
+                              device=dev)
+            setup = {"engine_s": time.monotonic() - t0}
+        # warm-up, not recorded: one admission with frames, one without
+        eng.submit(Request(prompt=reqs[0][0], max_new_tokens=2, rid=-1,
+                           frames=reqs[0][2]))
+        eng.submit(Request(prompt=reqs[2][0], max_new_tokens=2, rid=-2))
+        eng.run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        adm = AdmissionRecorder(eng, mods)
+        with adm.installed():
+            done, stats, records = serve(eng, mods, reqs, keep_logits=True,
+                                         warm=False, order=order,
+                                         snapshot=("xk", "xv"))
+        admitted = check_admissions(key, adm.log, reqs, order)
+        check_run(key, done, stats, reqs, admitted=admitted)
+        check(not eng.degraded, f"{key}: the engine degraded to dense")
+        tokens = {g.rid: g.tokens for g in done}
+        slots = {e["rid"]: e["slot"] for e in adm.log}
+        check(tokens[5] == tokens[1] and slots[5] != slots[1],
+              f"{key}: r5 (r1's prompt and frames, slot {slots[5]}) gave "
+              f"{tokens[5]}, r1 (slot {slots[1]}) {tokens[1]}")
+        check(slots[4] == slots[1] and slots[5] == slots[0],
+              f"{key}: slots {slots}: r4 and r5 must reuse r1's and r0's")
+        cb = eng.cache_bytes()
+        check(cb["kv"] == WHISPER_KV_BYTES[fmt] and
+              cb["other"] == WHISPER_OTHER_BYTES,
+              f"{key}: cache bytes {cb['kv']} + {cb['other']}")
+        frame_s = [e["s"] for e in adm.log if e["frames"]]
+        out = dict(phase="whisper", arch=arch, kv_format=fmt, **setup,
+                   weight_bytes=wb, kv_bytes=cb["kv"],
+                   cross_kv_bytes=cb["other"] - 16,
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+                   admission_ms_with_frames=1e3 * float(np.median(frame_s)),
+                   admissions=[{k: e[k] for k in ("rid", "slot", "frames",
+                                                  "s", "rows")}
+                               for e in adm.log],
+                   admission_launches=admitted, slots=slots, **stats)
+        emit(phase="profile", arch=arch, kv_format=fmt,
+             **profile_steps(eng, mods))
+        records = records[:WHISPER_COMPARE_STEPS]
+        check(records[0]["T"] > 1 and records[-1]["T"] == 1,
+              f"{key}: the compare needs the prefill and a decode step")
+        cross = records[0]["state_in"]
+        if fmt == "dense":
+            out["encoder_hold"] = hold_encoder(eng, reqs[0][2], cross,
+                                               slots[0])
+        t0 = time.monotonic()
+        worst, n = compare_with_cpu(eng, records, state_in=cross)
+        out.update(cpu_max_rel_logit_err=worst, cpu_margin_tokens=n,
+                   cpu_compared_steps=len(records),
+                   cpu_compared_layers=cfg.n_layers,
+                   cpu_compare_s=time.monotonic() - t0, tokens=tokens)
+        del records, cross
+        emit(**out)
+        runs.append(stats)
+        emit(phase="timing", whisper_run_end_s=time.monotonic() - t_phase,
+             kv_format=fmt)
+    del eng
+    torch.cuda.empty_cache()
+    runs.append(whisper_cli(mods))
+    emit(phase="timing", whisper_cli_end_s=time.monotonic() - t_phase)
+    return runs
+
+
+def whisper_cli(mods):
+    """``launch.serve --arch whisper-large-v3 --variant full --quantise
+    babsmax64:n4 --packed --no-dense-fallback``: 4 text-only requests (the
+    zero cross template, no encoder launch), 16 steps of 256
+    ``dequant_matmul`` and 1 ``dequant_matmul_t`` launches, the resident
+    weight bytes of ``WEIGHT_BYTES``. Returns the run's launches."""
+    from repro_torch.launch import serve as serve_cli
+    arch, steps = WHISPER_ARCH, 16
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    (done, text), launches = served(mods, lambda: quiet(serve_cli.main, [
+        "--arch", arch, "--variant", "full", "--quantise", SPEC, "--packed",
+        "--no-dense-fallback", "--device", "cuda"]))
+    check(len(done) == 4 and all(len(g.tokens) == steps and not g.failed
+                                 for g in done),
+          f"serve --arch {arch}: requests did not all finish")
+    check_packed_steps(launches, text, steps=steps,
+                       per_step=LAUNCHES_PER_STEP[arch]["dequant_matmul"],
+                       unembed=True, what=f"serve --arch {arch}")
+    wb = WEIGHT_BYTES[arch]
+    check(f"{wb['codes']:,} codes + {wb['scales']:,} scales" in text and
+          f"{wb['dense']:,} dense bytes" in text,
+          f"serve --arch {arch}: weight bytes differ: {text[:600]}")
+    emit(phase="whisper", step="cli", arch=arch, s=time.monotonic() - t0,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+         launches=launches,
+         report=[ln for ln in text.splitlines() if ln.startswith("[serve]")],
+         tokens={g.rid: g.tokens for g in done})
+    del done
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+def internvl_phase(dev, mods):
+    """internvl2-26b at full width and ``INTERNVL_LAYERS`` of its 48 layers,
+    babsmax64:n4 packed (the embedding in byte codes: odd vocab; the
+    unembed dense: 92553 is no multiple of 64), q8 cache: 4 requests with
+    the launches of ``LAUNCHES_PER_STEP``, weight and KV bytes, the prefill
+    step and first decode step held to the CPU plain path at the same
+    depth; then ``apply`` over 256 seeded patch tokens of width 3200 and a
+    64-token text on the card, held position by position to the CPU plain
+    path (the margin rule). No profile: late in the script the trace of
+    this run recorded 7 device kernels for its 8 attention calls (the
+    first prefill call's missing), in three runs out of three, and all 8
+    in a fresh process (``scripts/profile_attention_events.py``); the CPU
+    hold of the served prefill step reads both layers' attention
+    outputs."""
+    from repro_torch.core.tensor_format import PackedTensor
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.serve.engine import params_to
+    arch = INTERNVL_ARCH
+    t_phase = time.monotonic()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng, setup_s = build_engine(arch, dev, kv_len=256, kv_format="q8",
+                                n_layers=INTERNVL_LAYERS)
+    cfg = eng.cfg
+    wb = eng.weight_bytes()
+    check({k: wb[k] for k in WEIGHT_BYTES[arch]} == WEIGHT_BYTES[arch],
+          f"{arch} weight_bytes {wb} != {WEIGHT_BYTES[arch]}")
+    emb, unemb = eng.params["embed"], eng.params["unembed"]
+    check(isinstance(emb, PackedTensor) and emb.bits == 8 and
+          not isinstance(unemb, PackedTensor),
+          f"{arch}: the embedding must pack in byte codes, the unembed "
+          "stay dense")
+    reqs = short_requests(cfg.vocab)
+    done, stats, records = serve(eng, mods, reqs, keep_logits=True)
+    check_run(arch + " q8", done, stats, reqs)
+    check(eng.cache_bytes()["kv"] == INTERNVL_KV_BYTES,
+          f"{arch}: KV bytes {eng.cache_bytes()['kv']}")
+    out = dict(phase="internvl", arch=arch, layers=cfg.n_layers,
+               kv_format="q8", setup_s=setup_s, weight_bytes=wb,
+               kv_bytes=INTERNVL_KV_BYTES,
+               peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+               **stats)
+    out["tokens"] = {g.rid: g.tokens for g in done}
+    records = records[:2]
+    check(records[0]["T"] > 1 and records[-1]["T"] == 1,
+          f"{arch}: the compare needs the prefill and a decode step")
+    t0 = time.monotonic()
+    worst, n = compare_with_cpu(eng, records)
+    out.update(serve_cpu_max_rel_logit_err=worst, serve_cpu_margin_tokens=n,
+               serve_cpu_compare_s=time.monotonic() - t0)
+    del records
+    batch = make_batch_fn(cfg, seq=64, batch=1, seed=0)(0)
+    (logits, t_card), launches = served(mods, lambda: timed_apply(
+        eng.fam.apply, eng.params, batch, cfg, dev))
+    check(launches == {"dequant_matmul": 7 * cfg.n_layers,
+                       "dequant_matmul_t": 0, "block_quant": 0,
+                       "decode_attention_quant": 0},
+          f"{arch} apply: launches {launches}")
+    check(tuple(logits.shape) == (1, cfg.n_vis_tokens + 64, cfg.vocab) and
+          bool(torch.isfinite(logits).all()), f"{arch} apply: logits "
+          f"{tuple(logits.shape)}")
+    t0 = time.monotonic()
+    want, _ = timed_apply(eng.fam.apply, params_to(eng.params,
+                                                   torch.device("cpu")),
+                          batch, cfg, torch.device("cpu"))
+    rel, n = hold_logits(logits[0].cpu(), want[0], f"{arch} apply, card vs "
+                         "CPU plain path")
+    check(n > 0, f"{arch} apply: no high-margin position to compare")
+    out.update(apply_tokens=[cfg.n_vis_tokens, 64], apply_ms=t_card * 1e3,
+               apply_launches=launches, cpu_max_rel_logit_err=rel,
+               cpu_margin_positions=n, cpu_compare_s=time.monotonic() - t0,
+               phase_s=time.monotonic() - t_phase)
+    emit(**out)
+    del eng, logits, want
+    torch.cuda.empty_cache()
+    return [stats, {"launches": launches}]
+
+
+def timed_apply(apply, params, batch, cfg, dev):
+    """``apply`` on ``batch`` (numpy) moved to ``dev``, under inference
+    mode; returns (logits, seconds, the device synchronised)."""
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    t0 = time.monotonic()
+    with torch.inference_mode():
+        logits = apply(params, b, cfg)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return logits, time.monotonic() - t0
 
 
 def device_line():
@@ -2773,14 +3302,15 @@ def summary(rows, runs):
             lambda r: r["launches_per_step"]),
         "dequant_matmul_t": per_step(
             rows["dequant_matmul_t"],
-            lambda r: r["M"] == 4 and r["bits"] == 4, lambda r: 1),
+            lambda r: r.get("model") == "gemma3-1b" and r["M"] == 4 and
+            r["bits"] == 4 and "regime" not in r, lambda r: 1),
         "block_quant": per_step(
             rows["block_quant"],
             lambda r: r["rows"] == 4 and r["hd"] == 256 and r["fmt"] == "q8",
             lambda r: g_step["block_quant"]),
         "decode_attention_quant": per_step(
             rows["decode_attention_quant"],
-            lambda r: r["T"] == 1 and r["fmt"] == "q8",
+            lambda r: r["T"] == 1 and r["fmt"] == "q8" and "model" not in r,
             lambda r: 22 if r["ring"] else 4),
     }
     ds = per_step(rows["dequant_matmul"],
@@ -2816,7 +3346,7 @@ def summary(rows, runs):
     # decode_attention_quant per gemma3-1b decode step (T=1, q8: 22 ring
     # layers at S=520, 4 global at S=1032), by both timings
     at = [r for r in rows["decode_attention_quant"]
-          if r["T"] == 1 and r["fmt"] == "q8"]
+          if r["T"] == 1 and r["fmt"] == "q8" and "model" not in r]
     n = {True: 22, False: 4}
     emit(phase="summary", kernel="decode_attention_quant",
          measured_over="one gemma3-1b decode step (B=4, q8 cache, 26 "
@@ -2826,6 +3356,7 @@ def summary(rows, runs):
                              for r in at) * 1e-3,
          library_ms=sum(r["library_ms"] * n[r["ring"]] for r in at),
          bound_ms=sum(r["bound_ms"] * n[r["ring"]] for r in at))
+    whisper_summary(rows)
     line = []
     for name, k in KERNELS.items():
         st = steps[name]
@@ -2841,6 +3372,38 @@ def summary(rows, runs):
                              f"{g_step[name]} launches, per-shape times x "
                              "launches"})
     return line
+
+
+def whisper_summary(rows):
+    """Per whisper-large-v3 decode step (B = 4, q8 cache) each kernel's
+    per-call times at that step's shapes times its launches per step, and
+    per admission with frames ``dequant_matmul`` at M = 1500."""
+    w = LAUNCHES_PER_STEP[WHISPER_ARCH + " q8"]
+    picks = {
+        "dequant_matmul": (lambda r: r.get("model") == WHISPER_ARCH and
+                           r["M"] == 4, lambda r: r["launches_per_step"]),
+        "dequant_matmul_t": (lambda r: r.get("model") == WHISPER_ARCH and
+                             r["M"] == 4 and r["bits"] == 4, lambda r: 1),
+        "block_quant": (lambda r: r.get("model") == WHISPER_ARCH and
+                        r["rows"] == 80 and r["fmt"] == "q8",
+                        lambda r: w["block_quant"]),
+        "decode_attention_quant": (
+            lambda r: r.get("model") == WHISPER_ARCH and r["T"] == 1 and
+            r["fmt"] == "q8", lambda r: w["decode_attention_quant"]),
+    }
+    for name, (pick, n) in picks.items():
+        emit(phase="summary", kernel=name, launches_per_step=w[name],
+             measured_over=f"one {WHISPER_ARCH} decode step (B=4, q8 "
+             "cache): per-shape times x launches",
+             **per_step(rows[name], pick, n))
+    emit(phase="summary", kernel="dequant_matmul",
+         launches_per_admission=WHISPER_ADMIT_LAUNCHES,
+         measured_over=f"one {WHISPER_ARCH} admission with frames (M = "
+         f"{WHISPER_ENC_SEQ})",
+         **per_step(rows["dequant_matmul"],
+                    lambda r: r.get("model") == WHISPER_ARCH and
+                    r["M"] == WHISPER_ENC_SEQ,
+                    lambda r: r["launches_per_admission"]))
 
 
 def main() -> int:
@@ -2887,9 +3450,14 @@ def main() -> int:
     emit(phase="timing", frontend_end_s=time.monotonic() - t_start)
     moe_runs = moe_phase(dev, mods)
     emit(phase="timing", moe_end_s=time.monotonic() - t_start)
+    whisper_runs = whisper_phase(dev, mods)
+    emit(phase="timing", whisper_end_s=time.monotonic() - t_start)
+    internvl_runs = internvl_phase(dev, mods)
+    emit(phase="timing", internvl_end_s=time.monotonic() - t_start)
 
     line = summary(rows, [paper, deepseek, *gemma, *alloc_runs, *train_runs,
-                          *frontend_runs, *moe_runs])
+                          *frontend_runs, *moe_runs, *whisper_runs,
+                          *internvl_runs])
     emit(phase="timing", total_s=time.monotonic() - t_start)
     emit(kernels=line)
     emit(ok=True, device={"platform": "gpu",

@@ -19,7 +19,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from repro_torch.models.api import ModelConfig
+from repro_torch.models.api import ModelConfig, get_family
 
 
 @dataclass(frozen=True)
@@ -53,16 +53,26 @@ def tokens_at(cfg: DataConfig, step: int) -> np.ndarray:
 
 def make_batch_fn(model_cfg: ModelConfig, seq: int, batch: int, seed: int = 0):
     """Return ``batch_at(step) -> dict`` of the model family's inputs: the
-    token stream. The audio frames and image patches of the whisper and
-    internvl families come with those families."""
-    if model_cfg.family in ("whisper", "internvl"):
-        raise NotImplementedError(
-            f"family {model_cfg.family!r} is not ported yet: its batches "
-            "carry inputs besides tokens")
+    token stream, plus whisper's audio frames (B, enc_seq, d_model) or
+    internvl's image patches (B, n_vis_tokens, D_VIT), drawn as the
+    reference draws them (standard normals from the Philox stream at
+    counter 2**31 + step). A family the port does not run raises
+    ``KeyError``."""
+    get_family(model_cfg.family)
     dc = DataConfig(vocab=model_cfg.vocab, seq=seq, batch=batch, seed=seed)
 
     def batch_at(step: int) -> dict:
-        return {"tokens": tokens_at(dc, step)}
+        b = {"tokens": tokens_at(dc, step)}
+        rng = _rng_at(dc, 2**31 + step)
+        if model_cfg.family == "whisper":
+            b["frames"] = rng.standard_normal(
+                (batch, model_cfg.enc_seq, model_cfg.d_model)).astype(
+                    np.float32)
+        elif model_cfg.family == "internvl":
+            from repro_torch.models.internvl import D_VIT
+            b["vis"] = rng.standard_normal(
+                (batch, model_cfg.n_vis_tokens, D_VIT)).astype(np.float32)
+        return b
 
     return batch_at
 

@@ -216,7 +216,7 @@ def register_family(fam: ModelFamily):
 
 def get_family(name: str) -> ModelFamily:
     if name not in _FAMILIES:
-        from . import transformer  # noqa: F401  (registers on import)
+        from . import internvl, transformer, whisper  # noqa: F401  (register)
     if name not in _FAMILIES:
         raise KeyError(f"model family {name!r} is not ported yet "
                        f"(ported: {sorted(_FAMILIES)})")

@@ -1,8 +1,8 @@
 """Shared layers: the packed-aware projection API (``linear``,
-``embed_lookup``, ``expert_matmul``), RMSNorm, RoPE, multi-token decode
-attention over a dense or quantised KV cache, cache writes, the
-teacher-forcing chunked ``flash_attention`` and ``attn_block``, the SwiGLU
-MLP and the sort-based MoE block.
+``embed_lookup``, ``expert_matmul``), RMSNorm, RoPE, single- and
+multi-token decode attention over a dense or quantised KV cache, cache
+writes, the teacher-forcing chunked ``flash_attention`` and ``attn_block``,
+the SwiGLU and GELU MLPs and the sort-based MoE block.
 
 Torch on the operands' device. ``linear`` is the single way a model
 multiplies an activation by a parameter: dense weights take the einsum of
@@ -207,13 +207,16 @@ class AttnParams(NamedTuple):
 def qkv_project(x, p: AttnParams, rot, cfg):
     """q, k, v projections, q and k rotated by ``rot``, the step's
     ``rope_tables``. The reference takes positions and builds the tables
-    inside; the port builds them once per step."""
+    inside; the port builds them once per step. ``rot=None`` leaves q and k
+    unrotated (the reference's ``rope_on=False``: whisper's encoder)."""
     q = linear(x, p.wq, "btd,dnh->btnh")
     k = linear(x, p.wk, "btd,dnh->btnh")
     v = linear(x, p.wv, "btd,dnh->btnh")
     if cfg.qk_norm and p.q_norm is not None:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    if rot is None:
+        return q, k, v
     return apply_rope(q, *rot), apply_rope(k, *rot), v
 
 
@@ -249,6 +252,47 @@ def attend(q, k_cache, v_cache, mask):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("btkgs,bskh->btkgh", p.to(v_cache.dtype), v_cache)
     return out.reshape(B, T, H, hd).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, q_position, *, window=0,
+                     kv_positions=None, ring=False, codebook=None):
+    """Single-token attention against a KV cache: q (B, 1, H, hd), caches
+    (B, S, K, hd), ``q_position`` the current position (a scalar, shared by
+    every row). ``ring=True``: a ring buffer written at ``pos % S``, whose
+    slot positions are reconstructed from ``q_position``, never-written
+    slots masked. ``kv_positions`` (S,) overrides the slot positions of a
+    linear cache. A :class:`QuantisedKV` cache (with its ``codebook``) is
+    read from codes by ``decode_attention_quant``."""
+    if isinstance(k_cache, QuantisedKV):
+        if kv_positions is not None:
+            raise ValueError("quantised caches reconstruct slot positions "
+                             "in the kernel: kv_positions must be None")
+        qpos = torch.as_tensor(q_position, dtype=torch.int32,
+                               device=q.device).expand(q.shape[0])[:, None]
+        return kops.decode_attention_quant(
+            q, k_cache.codes, k_cache.scales, v_cache.codes, v_cache.scales,
+            codebook, qpos.contiguous(), window, ring=ring,
+            bits=codebook_bits(codebook))
+    B, _, H, hd = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, K, H // K, hd)
+    s = torch.einsum("bkgh,bskh->bkgs", qg, k_cache.to(qg.dtype))
+    s = s.float() * hd ** -0.5
+    qp = torch.as_tensor(q_position, device=q.device)
+    if ring:
+        from repro_torch.serve.cache import ring_positions
+        kv = ring_positions(qp.to(torch.int32), S)
+        mask = (kv <= qp) & (kv >= 0)
+    else:
+        kv = (torch.arange(S, device=q.device) if kv_positions is None
+              else torch.as_tensor(kv_positions, device=q.device))
+        mask = kv <= qp
+    if window > 0:
+        mask = mask & (qp - kv < window)
+    s = s.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskh->bkgh", p.to(v_cache.dtype), v_cache)
+    return out.reshape(B, 1, H, hd).to(q.dtype)
 
 
 def chunked_decode_attention(q, k_cache, v_cache, q_positions, *, window=0,
@@ -470,6 +514,14 @@ def swiglu(x, p: MlpParams):
     u = linear(x, p.w_up, "btd,df->btf")
     h = torch.nn.functional.silu(g) * u
     return linear(h, p.w_down, "btf,fd->btd")
+
+
+def gelu_mlp(x, w_in, w_out):
+    """The GELU MLP (whisper): ``jax.nn.gelu``'s default, the tanh
+    approximation."""
+    h = torch.nn.functional.gelu(linear(x, w_in, "btd,df->btf"),
+                                 approximate="tanh")
+    return linear(h, w_out, "btf,fd->btd")
 
 
 # ---------------------------------------------------------------------------

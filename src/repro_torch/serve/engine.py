@@ -33,8 +33,13 @@ before every slot-fill pass, including the refill at the end of each
 ``step_once``) and ``on_admit`` (called once a slot is seated, where it
 forks pooled shared-prefix KV into the slot). The device step is the
 instance attribute ``_step`` (the family's ``decode_step`` bound to the
-config), which the fault injectors wrap. Encoder-decoder admission
-(``_admit_cross``, ``Request.frames``) comes with the whisper family.
+config), which the fault injectors wrap.
+
+Encoder-decoder families (whisper) get a per-slot cross-attention prefill:
+``ModelFamily.cross_prefill`` runs once per admitted request, on its
+``Request.frames`` (or the engine's zero template for a text-only one), and
+its ``xk``/``xv`` rows are copied into the seated slot's state before
+``on_admit`` (``_admit_cross``). The reset mask never touches them.
 
 The step runs under ``torch.inference_mode()``; each step copies the logits
 to the host (``.cpu()``), where tokens are sampled with numpy.
@@ -122,6 +127,10 @@ class Request:
     max_new_tokens: int = 32
     temperature: float = 0.0
     rid: int = 0
+    # encoder-decoder families: this request's encoder input ((enc_seq, D)
+    # frame embeddings for whisper), encoded once at slot admission through
+    # ModelFamily.cross_prefill. None = text-only (zero cross K/V).
+    frames: Optional[np.ndarray] = None
     # max engine steps this request may occupy a slot (prefill chunks +
     # decode steps); exceeding it quarantines the request. None = no limit.
     deadline_steps: Optional[int] = None
@@ -212,6 +221,12 @@ class ServeEngine:
         # recording wrapper) is honoured, and itself replaceable per
         # instance (serve.faults wraps it)
         self._step = lambda p, s, b: self.fam.decode_step(p, s, b, self.cfg)
+        # per-slot cross-attention prefill (encoder-decoder families), bound
+        # late like _step; the text-only zero template is built once
+        self._cross_prefill = (
+            (lambda p, f: self.fam.cross_prefill(p, f, self.cfg))
+            if self.fam.cross_prefill is not None else None)
+        self._zero_cross = None
         self._state = self._zero_state()
         self._slots: List[Optional[Generation]] = [None] * batch_slots
         self._queue: List[Request] = []
@@ -276,7 +291,7 @@ class ServeEngine:
         """Resident decode-state bytes: ``total`` over the allocated state,
         the family's cache geometry breakdown (``kv`` with its code/scale
         split, ``dense_kv``, ``uniform_kv``, ``cache_groups``, ...) and
-        ``other`` (non-KV state, e.g. pos)."""
+        ``other`` (non-KV state: whisper's cross-attention K/V, pos)."""
         total = sum(t.numel() * t.element_size()
                     for t in self._state.values())
         out = {"total": total, "family": self.cfg.family}
@@ -529,10 +544,30 @@ class ServeEngine:
                 self._slot_pos[i] = 0
                 self._slot_steps[i] = 0
                 self._needs_reset[i] = True
+                if self._cross_prefill is not None:
+                    self._admit_cross(i, req)
                 # a scheduler forks pooled prefix KV into the slot here (it
                 # may move _slot_pos past the prefix and clear the reset bit)
                 if self.on_admit is not None:
                     self.on_admit(self, i, req, g)
+
+    def _admit_cross(self, i: int, req: Request):
+        """Per-slot cross-attention prefill: encode this request's frames
+        (or take the zero template for a text-only one) and copy the
+        entries into slot ``i``'s state rows in place, on the device. The
+        cross K/V is owned by admission, not by the in-step reset mask."""
+        with torch.inference_mode():
+            if req.frames is not None:
+                frames = torch.as_tensor(req.frames,
+                                         device=self.device)[None]
+                entries = self._cross_prefill(self.params, frames)
+            else:
+                if self._zero_cross is None:
+                    self._zero_cross = self.fam.cross_prefill(
+                        self.params, None, self.cfg)
+                entries = self._zero_cross
+            for key, val in entries.items():
+                self._state[key][:, i].copy_(val[:, 0])
 
     def _emit_token(self, i: int, g: Generation, logits_row: np.ndarray,
                     finished: List[Generation]):

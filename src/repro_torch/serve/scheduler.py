@@ -319,7 +319,8 @@ class Scheduler:
                priority: float = 0.0, prefix: Optional[str] = None,
                at: Optional[float] = None, rid: Optional[int] = None,
                temperature: float = 0.0,
-               deadline_steps: Optional[int] = None) -> StreamHandle:
+               deadline_steps: Optional[int] = None,
+               frames=None) -> StreamHandle:
         """Queue a request with the front end; returns a
         :class:`StreamHandle` at once.
 
@@ -327,8 +328,10 @@ class Scheduler:
         :meth:`register_prefix`-ed prefix the prompt starts with (declaring
         it lets admission fork the pooled KV instead of recomputing it).
         ``at``: virtual arrival time (engine steps × ``step_dt``); None =
-        already arrived. The engine's ``validate_request`` runs here, so a
-        malformed request raises at the caller, not mid-replay."""
+        already arrived. ``frames``: the request's encoder input
+        (``Request.frames``, whisper). The engine's ``validate_request``
+        runs here, so a malformed request raises at the caller, not
+        mid-replay."""
         if rid is None:
             rid = self._seq
         if rid in self.handles:
@@ -343,7 +346,7 @@ class Scheduler:
                     f"{prefix!r} ({len(ptoks)} tokens) — the prefix is part "
                     "of the prompt; declaring it only enables KV reuse")
         req = Request(prompt=list(prompt), max_new_tokens=max_new_tokens,
-                      temperature=temperature, rid=rid,
+                      temperature=temperature, rid=rid, frames=frames,
                       deadline_steps=deadline_steps)
         self.engine.validate_request(req)
         handle = StreamHandle(self, rid, priority, prefix,

@@ -41,8 +41,10 @@ class TrainConfig:
 
 def shift_labels(cfg: ModelConfig, batch, logits):
     """Align logits with next-token targets; returns (logits, labels, mask).
-    (The reference's visual-prefix case comes with the internvl family.)"""
+    internvl's visual prefix has logits but no text labels: it is cut."""
     tokens = batch["tokens"]
+    if cfg.family == "internvl":
+        logits = logits[:, cfg.n_vis_tokens:]
     labels = tokens[:, 1:].long()
     return logits[:, :-1], labels, torch.ones(labels.shape,
                                               dtype=torch.float32,

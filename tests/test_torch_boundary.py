@@ -62,6 +62,22 @@ def test_port_imports_without_jax_loaded():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_model_families_import_without_jax_loaded():
+    code = ("import sys, repro_torch.models.whisper, "
+            "repro_torch.models.internvl, repro_torch.configs.shapes, "
+            "repro_torch.data.pipeline; "
+            "from repro_torch.models.api import get_family; "
+            "[get_family(n) for n in ('whisper', 'internvl')]; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'ml_dtypes', 'repro')]; print(bad); "
+            "sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True,
+                       env={"PYTHONPATH": str(REPO / "src"),
+                            "PATH": "/usr/bin:/bin"})
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_port_is_lint_clean_without_pragmas():
     """The reference's lint gate walks all of src/, the port included."""
     r = subprocess.run([sys.executable, "-m", "repro.analysis",
@@ -106,6 +122,14 @@ def test_serve_cli_defaults_to_the_card(no_card):
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--variant", "smoke"])
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "internvl2-26b"])
+def test_serve_cli_of_the_new_families_defaults_to_the_card(no_card, arch):
+    from repro_torch.launch import serve
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", arch, "--variant", "smoke", "--quantise",
+                    "babsmax64:n4", "--packed"])
 
 
 def test_serve_cli_traffic_replay_defaults_to_the_card(no_card):

@@ -3,7 +3,9 @@
 ``decode_attention_quant``, ``dequant_matmul_t``), both matmul kernels
 at the teacher-forcing M of ``apply`` (M = B·T up to 2048), and
 ``dequant_matmul`` with the expert lead dim at the MoE configs' expert
-shapes, against their plain torch versions on the same inputs. Every test here needs an
+shapes, and each kernel at the shapes of whisper-large-v3 and internvl2-26b
+(the whole-axis nibble tile of a 51866-row table, M = 1500, 20 and 48
+heads), against their plain torch versions on the same inputs. Every test here needs an
 NVIDIA GPU and skips elsewhere; the file imports nothing of JAX, so it runs
 on a machine that has only the port.
 
@@ -697,3 +699,77 @@ def test_table_cache_holds_many_codebooks(cuda_device):
     import gc
     gc.collect()
     assert len(dqm._tables) == before
+
+
+# ---------------------------------------------------------------------------
+# The shapes of the encoder-decoder and vision-language families
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 32])
+@pytest.mark.parametrize("V,D,bits", [(51866, 1280, 4), (51866, 1280, 8),
+                                      (1042, 1152, 4)])
+def test_dequant_matmul_t_whole_axis_tile(cuda_device, M, V, D, bits):
+    """A table whose rows are not a multiple of 256 packs as one half-split
+    nibble tile: whisper-large-v3's tied (51866, 1280) table (25933 byte
+    rows) and a small one of 521 byte rows, both odd counts that leave a
+    ragged last warp tile. bf16 x, one launch, reruns bitwise equal."""
+    args = mt_args(M, V, D, bits, 64, M + V + bits, torch.bfloat16,
+                   cuda_device)
+    check_mt(args, 64, bits, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 5])
+def test_dequant_matmul_t_whole_axis_tile_f32(cuda_device, M):
+    args = mt_args(M, 1042, 1152, 4, 64, M, torch.float32, cuda_device)
+    check_mt(args, 64, 4, torch.float32)
+
+
+def heads_inputs(T, S, H, K, hd, fmt, dtype, starts):
+    """B = 4 rows of a linear cache of S slots with K heads of hd (K/V
+    written by quantise_kv) and q of H heads, positions from ``starts``."""
+    rng = np.random.default_rng(T * 131 + S + H + K + hd)
+    cb = kv_codebook(fmt)
+    caches = []
+    for _ in range(2):
+        dense = torch.from_numpy(
+            rng.standard_normal((4, S, K, hd)).astype(np.float32))
+        caches += list(quantise_kv(dense, cb, kv_bits(fmt)))
+    q = torch.from_numpy((rng.standard_normal((4, T, H, hd)) * 2).astype(
+        np.float32)).to(dtype)
+    qp = torch.tensor(starts, dtype=torch.int32)[:, None] + torch.arange(
+        T, dtype=torch.int32)
+    return (q, *caches, cb, qp), dict(window=0, ring=False,
+                                      bits=kv_bits(fmt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,starts", [(1, [200, 17, 100, 255]),
+                                      (8, [200, 8, 100, 248])])
+@pytest.mark.parametrize("H,K,hd", [(20, 20, 64), (48, 8, 128)])
+@pytest.mark.parametrize("fmt", FMTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_family_heads(cuda_device, T, starts, H, K,
+                                              hd, fmt, dtype):
+    """whisper-large-v3's self-attention cache (MHA: 20 heads of 64, G = 1)
+    and internvl2-26b's (48 heads over 8 KV heads of 128, G = 6), S = 264
+    (kv_len 256 + chunk 8)."""
+    args, kw = heads_inputs(T, 264, H, K, hd, fmt, dtype, starts)
+    check_attention(args, kw, dtype, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,N", [(1280, 1280), (1280, 5120), (5120, 1280)])
+def test_dequant_matmul_at_whisper_admission_m(cuda_device, K, N):
+    """whisper's encoder and cross K/V projections at M = enc_seq = 1500
+    (not a multiple of the 32-row tile): one launch a call, reruns bitwise
+    equal, held to the plain version."""
+    args = prefill_args(1500, K, N, 4, 64, K + N, cuda_device)
+    before = dqm.launches
+    y = ops.dequant_matmul(*args, block=64, bits=4)
+    again = ops.dequant_matmul(*args, block=64, bits=4)
+    torch.cuda.synchronize()
+    assert dqm.launches == before + 2
+    assert y.shape == (1500, N) and torch.equal(y, again)
+    hold_on_card(y, dequant_matmul_ref(*args, 64, 4))

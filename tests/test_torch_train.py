@@ -122,8 +122,8 @@ def test_make_batch_fn_bitwise(arch):
 
 
 def test_batches_of_unported_families_raise():
-    cfg = configs.get_config("paper-100m", "smoke").replace(family="whisper")
-    with pytest.raises(NotImplementedError, match="whisper"):
+    cfg = configs.get_config("paper-100m", "smoke").replace(family="rwkv6")
+    with pytest.raises(KeyError, match="rwkv6"):
         pipeline.make_batch_fn(cfg, seq=4, batch=1)
 
 
