@@ -8,7 +8,9 @@ Runs on the card by default; ``--device cpu`` runs the plain torch path.
 With ``--packed`` the seeded weights are drawn and packed one leaf at a
 time (``serve.engine.build_packed_engine``): the f32 tree is never held
 whole, so a model whose f32 weights exceed the card (qwen2-moe-a2.7b full,
-57.3 GB) serves from its 7.6 GB of packed weights.
+57.3 GB) serves from its 7.6 GB of packed weights. The recurrent families
+serve the same way (``--arch rwkv6-1.6b``, ``--arch zamba2-2.7b``); rwkv6
+has no KV cache, so it takes no ``--kv-format``.
 ``--kv-format auto --kv-budget-bytes N`` picks each cache group's format
 (f32, q8 or q4) by the Fisher sensitivity of its K/V rows, measured on a
 short dense decode, so that the serving cache fits N bytes. ``--ckpt DIR``
@@ -33,8 +35,8 @@ import torch
 from repro_torch import configs
 from repro_torch.core import build_plan
 from repro_torch.core.plan import flat_with_paths
-from repro_torch.models.api import (get_family, init_leaves, resolve_device,
-                                    torch_dtype)
+from repro_torch.models.api import (family_leaves, get_family,
+                                    resolve_device, torch_dtype)
 from repro_torch.serve.engine import Request, ServeEngine, build_packed_engine
 
 
@@ -133,6 +135,9 @@ def main(argv=None):
     if args.kv_format == "auto":
         cfg = cfg.replace(kv_format=_auto_kv_format(cfg, fam, params, args))
     elif args.kv_format and args.kv_format != "f32":
+        if fam.cache_spec is None:
+            raise SystemExit(f"[serve] --kv-format {args.kv_format}: family "
+                             f"{cfg.family!r} has no KV cache")
         cfg = cfg.replace(kv_format=args.kv_format)
     kw = dict(batch_slots=args.slots, kv_len=args.kv_len,
               prefill_chunk=args.prefill_chunk,
@@ -144,8 +149,7 @@ def main(argv=None):
         # seeded weights are drawn and packed one leaf at a time, so the
         # f32 tree is never held whole
         leaves = (flat_with_paths(params) if params is not None else
-                  init_leaves(fam.param_specs(cfg), seed=args.seed,
-                              device=device))
+                  family_leaves(cfg, seed=args.seed, device=device))
         eng, bits = build_packed_engine(cfg, args.quantise, leaves,
                                         validate=not args.no_validate, **kw)
         wb = eng.weight_bytes()

@@ -138,7 +138,12 @@ class ModelFamily:
     Weights are applied only through ``models.layers.linear`` /
     ``embed_lookup``, so any tensor declared in ``pack_layouts`` serves
     straight from packed codes. ``pack_layouts(cfg) -> {tensor-path:
-    (n_lead, n_contract)}`` is required."""
+    (n_lead, n_contract)}`` is required. ``finish_leaf(cfg, path, leaf) ->
+    leaf``, where given, replaces the generic draw of the leaves a family
+    initialises its own way (rwkv6's decay spread, zamba2's SSM vectors),
+    leaf by leaf, so that ``init`` and the leaf-streamed
+    :func:`family_leaves` agree; ``cache_spec`` is None for a family with
+    no KV cache (rwkv6)."""
 
     name: str
     param_specs: Callable           # (cfg) -> tree[ParamSpec]
@@ -151,6 +156,7 @@ class ModelFamily:
     cross_prefill: Callable = None
     cache_spec: Callable = None
     pack_layouts: Callable = None
+    finish_leaf: Callable = None    # (cfg, path, leaf) -> leaf
 
     def __post_init__(self):
         if self.pack_layouts is None:
@@ -216,10 +222,11 @@ def register_family(fam: ModelFamily):
 
 def get_family(name: str) -> ModelFamily:
     if name not in _FAMILIES:
-        from . import internvl, transformer, whisper  # noqa: F401  (register)
+        from . import (internvl, rwkv6, transformer,  # noqa: F401
+                       whisper, zamba2)                # (register)
     if name not in _FAMILIES:
-        raise KeyError(f"model family {name!r} is not ported yet "
-                       f"(ported: {sorted(_FAMILIES)})")
+        raise KeyError(f"unknown model family {name!r} (known: "
+                       f"{sorted(_FAMILIES)})")
     return _FAMILIES[name]
 
 
@@ -227,7 +234,7 @@ def get_family(name: str) -> ModelFamily:
 # Spec utilities
 # ---------------------------------------------------------------------------
 
-def init_leaves(specs, *, seed: int = 0, device=None):
+def init_leaves(specs, *, seed: int = 0, device=None, finish=None):
     """Yield ``(path, tensor)`` for every leaf of ``specs`` in sorted path
     order, each made on ``device`` when it is reached: truncated-normal
     (±3σ) fan-in init for >=2-D leaves (std 0.02 for embeddings), ones for
@@ -236,11 +243,15 @@ def init_leaves(specs, *, seed: int = 0, device=None):
     leaves equal :func:`init_from_specs`'s; a caller that quantises each
     leaf and drops it holds one f32 leaf at a time. The numbers differ from
     ``jax.random``'s; tests carry reference weights across with
-    ``repro_torch.interop`` instead."""
+    ``repro_torch.interop`` instead. ``finish(path, leaf) -> leaf``, where
+    given, replaces each drawn leaf (a family's ``finish_leaf``); the draw
+    is made all the same, so the generator's stream does not depend on
+    it."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     for name, spec in flat_with_paths(specs):
-        yield name, _init_leaf(name, spec, gen, dev)
+        leaf = _init_leaf(name, spec, gen, dev)
+        yield name, leaf if finish is None else finish(name, leaf)
 
 
 def _init_leaf(name, spec, gen, dev):
@@ -258,8 +269,20 @@ def _init_leaf(name, spec, gen, dev):
     return x.mul_(std).to(dt)
 
 
-def init_from_specs(specs, *, seed: int = 0, device=None):
+def init_from_specs(specs, *, seed: int = 0, device=None, finish=None):
     """Materialise parameters on ``device`` (default the card): the leaves
     of :func:`init_leaves`, in the tree of ``specs``."""
-    leaves = dict(init_leaves(specs, seed=seed, device=device))
+    leaves = dict(init_leaves(specs, seed=seed, device=device,
+                              finish=finish))
     return map_with_paths(lambda name, _: leaves[name], specs)
+
+
+def family_leaves(cfg: ModelConfig, *, seed: int = 0, device=None):
+    """The leaves of ``cfg``'s family ``init``, one at a time
+    (:func:`init_leaves` over its parameter specs, each leaf finished by
+    the family's ``finish_leaf``): what ``build_packed_engine`` packs."""
+    fam = get_family(cfg.family)
+    finish = (None if fam.finish_leaf is None else
+              lambda name, leaf: fam.finish_leaf(cfg, name, leaf))
+    return init_leaves(fam.param_specs(cfg), seed=seed, device=device,
+                       finish=finish)

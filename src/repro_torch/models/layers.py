@@ -2,7 +2,8 @@
 ``embed_lookup``, ``expert_matmul``), RMSNorm, RoPE, single- and
 multi-token decode attention over a dense or quantised KV cache, cache
 writes, the teacher-forcing chunked ``flash_attention`` and ``attn_block``,
-the SwiGLU and GELU MLPs and the sort-based MoE block.
+the SwiGLU and GELU MLPs, the sort-based MoE block and the depthwise
+``causal_conv1d`` (zamba2's Mamba-2 layers).
 
 Torch on the operands' device. ``linear`` is the single way a model
 multiplies an activation by a parameter: dense weights take the einsum of
@@ -631,3 +632,38 @@ def router_load_balancing_loss(probs, choice, E: int):
     f = onehot.mean(0)
     pbar = probs.mean(0)
     return E * torch.sum(f * pbar)
+
+
+# ---------------------------------------------------------------------------
+# Depthwise causal convolution (zamba2)
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(x, w, state=None, n_valid=None):
+    """Depthwise causal conv over time, as the reference's sum of shifted
+    products (not ``F.conv1d``, whose cuDNN path may round through TF32 on
+    the card). x: (B, T, C); w: (Kw, C). With ``state`` ((B, Kw-1, C))
+    performs streaming decode; returns (y, new_state). ``n_valid`` ((B,)
+    int32) marks how many leading tokens of each row are real (ragged
+    chunks): the new state is then the Kw-1 inputs preceding each row's
+    valid prefix end, so padding tokens never enter the streaming state (a
+    row with n_valid=0 keeps its state)."""
+    Kw = w.shape[0]
+    T = x.shape[1]
+    if state is None:
+        xp = torch.nn.functional.pad(x, (0, 0, Kw - 1, 0))
+    else:
+        xp = torch.cat([state.to(x.dtype), x], dim=1)
+    y = xp[:, 0:T] * w[0]
+    for i in range(1, Kw):
+        y = y + xp[:, i:i + T] * w[i]
+    if Kw <= 1:
+        new_state = None
+    elif n_valid is None:
+        new_state = xp[:, -(Kw - 1):]
+    else:
+        # row b's state = xp[b, n_valid[b] : n_valid[b] + Kw-1]
+        idx = n_valid.long()[:, None] + torch.arange(Kw - 1,
+                                                     device=x.device)
+        new_state = torch.gather(
+            xp, 1, idx[:, :, None].expand(-1, -1, xp.shape[2]))
+    return y.to(x.dtype), new_state

@@ -35,6 +35,9 @@ forks pooled shared-prefix KV into the slot). The device step is the
 instance attribute ``_step`` (the family's ``decode_step`` bound to the
 config), which the fault injectors wrap.
 
+Recurrent families (rwkv6, zamba2) carry per-slot state that the reset
+mask wipes like KV rows; rwkv6 has no KV cache at all (no ``cache_spec``).
+
 Encoder-decoder families (whisper) get a per-slot cross-attention prefill:
 ``ModelFamily.cross_prefill`` runs once per admitted request, on its
 ``Request.frames`` (or the engine's zero template for a text-only one), and
@@ -291,10 +294,18 @@ class ServeEngine:
         """Resident decode-state bytes: ``total`` over the allocated state,
         the family's cache geometry breakdown (``kv`` with its code/scale
         split, ``dense_kv``, ``uniform_kv``, ``cache_groups``, ...) and
-        ``other`` (non-KV state: whisper's cross-attention K/V, pos)."""
+        ``other`` (non-KV state: whisper's cross-attention K/V, rwkv6's and
+        zamba2's recurrent, conv and SSM state, pos). A family without a
+        cache geometry (rwkv6) reports ``kv`` 0, no groups and its whole
+        state as ``other``."""
         total = sum(t.numel() * t.element_size()
                     for t in self._state.values())
         out = {"total": total, "family": self.cfg.family}
+        if self.fam.cache_spec is None:
+            out.update({"kv": 0, "uniform_kv": 0,
+                        "cache_ratio_vs_uniform": 1.0, "cache_groups": [],
+                        "other": total})
+            return out
         spec = self.fam.cache_spec(self.cfg, self.B, self.kv_len,
                                    slack=self.prefill_chunk,
                                    windowed=self.windowed_cache)

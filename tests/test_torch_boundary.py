@@ -64,10 +64,12 @@ def test_port_imports_without_jax_loaded():
 
 def test_model_families_import_without_jax_loaded():
     code = ("import sys, repro_torch.models.whisper, "
-            "repro_torch.models.internvl, repro_torch.configs.shapes, "
-            "repro_torch.data.pipeline; "
+            "repro_torch.models.internvl, repro_torch.models.rwkv6, "
+            "repro_torch.models.zamba2, repro_torch.configs, "
+            "repro_torch.configs.shapes, repro_torch.data.pipeline; "
             "from repro_torch.models.api import get_family; "
-            "[get_family(n) for n in ('whisper', 'internvl')]; "
+            "[get_family(n) for n in ('whisper', 'internvl', 'rwkv6', "
+            "'zamba2')]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'ml_dtypes', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -124,7 +126,8 @@ def test_serve_cli_defaults_to_the_card(no_card):
         serve.main(["--variant", "smoke"])
 
 
-@pytest.mark.parametrize("arch", ["whisper-large-v3", "internvl2-26b"])
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "internvl2-26b",
+                                  "rwkv6-1.6b", "zamba2-2.7b"])
 def test_serve_cli_of_the_new_families_defaults_to_the_card(no_card, arch):
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -5,7 +5,8 @@ at the teacher-forcing M of ``apply`` (M = B·T up to 2048), and
 ``dequant_matmul`` with the expert lead dim at the MoE configs' expert
 shapes, and each kernel at the shapes of whisper-large-v3 and internvl2-26b
 (the whole-axis nibble tile of a 51866-row table, M = 1500, 20 and 48
-heads), against their plain torch versions on the same inputs. Every test here needs an
+heads) and of rwkv6-1.6b and zamba2-2.7b (N = 64 and K = 64, head dim 80),
+against their plain torch versions on the same inputs. Every test here needs an
 NVIDIA GPU and skips elsewhere; the file imports nothing of JAX, so it runs
 on a machine that has only the port.
 
@@ -773,3 +774,57 @@ def test_dequant_matmul_at_whisper_admission_m(cuda_device, K, N):
     assert dqm.launches == before + 2
     assert y.shape == (1500, N) and torch.equal(y, again)
     hold_on_card(y, dequant_matmul_ref(*args, 64, 4))
+
+
+# ---------------------------------------------------------------------------
+# The shapes of the recurrent families (rwkv6-1.6b, zamba2-2.7b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 32])
+@pytest.mark.parametrize("K,N", [(2048, 64), (64, 2048), (5120, 2560),
+                                 (2560, 2560)])
+def test_dequant_matmul_at_recurrent_shapes(cuda_device, M, K, N):
+    """rwkv6's decay LoRA pair: N = 64 (one scale column, one column tile)
+    and K = 64 (a nibble tile of 64: 32 byte rows, half a 64-pair chunk);
+    zamba2's out_proj and the shared block's wq/wk/wv. One launch a call,
+    reruns bitwise equal, held to the plain version."""
+    from repro_torch.core.nibble import nibble_k_tile
+    assert nibble_k_tile(64) == 64
+    args = prefill_args(M, K, N, 4, 64, M + K + N, cuda_device)
+    before = dqm.launches
+    y = ops.dequant_matmul(*args, block=64, bits=4)
+    again = ops.dequant_matmul(*args, block=64, bits=4)
+    torch.cuda.synchronize()
+    assert dqm.launches == before + 2
+    assert y.shape == (M, N) and torch.equal(y, again)
+    hold_on_card(y, dequant_matmul_ref(*args, 64, 4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", FMTS)
+@pytest.mark.parametrize("rows", [4 * 32, 32 * 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_quant_kv_at_head_dim_80(cuda_device, fmt, rows, dtype):
+    """zamba2's shared-attention cache write: block = hd = 80 (ten 16-byte
+    bf16 chunks a row, a lane group of 16 with 6 idle lanes; q4 rows of 40
+    bytes), k and v in one launch, bitwise the plain version's, from rows
+    of 4 slots x 32 heads (decode) and 32 x 32 (a prefill chunk of 8)."""
+    cb = kv_codebook(fmt)
+    k, v = (x.to(dtype).to(cuda_device)
+            for x in kv_rows_in(fmt, rows, 80, seed=rows + 80))
+    check_kv_write(k, v, cb, 80, 80, fmt, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,starts", [(1, [200, 17, 100, 255]),
+                                      (8, [200, 8, 100, 248])])
+@pytest.mark.parametrize("fmt", FMTS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_at_head_dim_80(cuda_device, T, starts, fmt,
+                                                dtype):
+    """zamba2's shared attention: 32 heads over 32 KV heads of 80, S = 264.
+    hd 80 is no tensor-core width, so T = 8 takes the rows kernel too,
+    with 20 of a warp's 32 lanes owning elements."""
+    args, kw = heads_inputs(T, 264, 32, 32, 80, fmt, dtype, starts)
+    check_attention(args, kw, dtype, cuda_device)

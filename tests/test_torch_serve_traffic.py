@@ -1,10 +1,10 @@
 """The port's serving front end (``serve.scheduler``, ``serve.traffic``)
 against the JAX package's.
 
-Every case of ``tests/test_serve_traffic.py`` runs on the port (except the
-rwkv6 recompute case: that family is not ported yet): shared-prefix forks
-bitwise equal to recompute (dense transformer, gemma3's ring groups, a
-packed checkpoint, a prompt equal to its prefix), pool eviction under live
+Every case of ``tests/test_serve_traffic.py`` runs on the port:
+shared-prefix forks bitwise equal to recompute (dense transformer, gemma3's
+ring groups, a packed checkpoint, a prompt equal to its prefix), rwkv6's
+recurrent state taking the recompute path, pool eviction under live
 forks, priority/aging admission, the stream lifecycle, expiry accounting,
 deterministic replay. Forks of quantised caches (q8, q4) equal recompute as
 in ``tests/test_serve_kv_quant.py``. Across packages, the same
@@ -122,6 +122,29 @@ class TestPrefixForkPerFamily:
         # the fork leaves >= 1 token to process, still bitwise equal
         _fork_vs_recompute(lambda: ServeEngine(CFG, params, **ENG_KW),
                            [list(PREFIX), PREFIX + [4]], PREFIX)
+
+    def test_non_kv_family_recomputes_with_warning(self):
+        """rwkv6 carries recurrent per-slot state: forking KV rows alone
+        would be wrong, so the scheduler falls back to recompute (the same
+        tokens, no fork) and says so once."""
+        from repro_torch.models import rwkv6
+        cfg = configs.get_config("rwkv6-1.6b", "smoke").replace(
+            dtype="float32", param_dtype="float32")
+        p = rwkv6.init(cfg, seed=0, device="cpu")
+        prompts = [PREFIX + [5, 6], PREFIX + [11]]
+        ref, _ = _recompute_tokens(lambda: ServeEngine(cfg, p, **ENG_KW),
+                                   prompts)
+        eng = ServeEngine(cfg, p, **ENG_KW)
+        sched = Scheduler(eng)
+        sched.register_prefix("sys", PREFIX)
+        assert not sched.pool.fork_capable
+        for i, pr in enumerate(prompts):
+            sched.submit(list(pr), max_new_tokens=5, prefix="sys", rid=i)
+        with pytest.warns(RuntimeWarning, match="recomputed, not forked"):
+            done = {g.rid: g.tokens for g in sched.run()}
+        assert done == ref
+        assert sched.stats["forks"] == 0
+        assert sched.stats["prefix_recompute"] == len(prompts)
 
     @pytest.mark.parametrize("fmt", ["q8", "q4"])
     def test_prefix_fork_quantised(self, params, fmt):
