@@ -162,7 +162,19 @@ Phases, each printed as JSON lines:
    ``dequant_matmul`` at both families' shapes (N = 64 and K = 64 among
    them), ``block_quant`` at head dim 80 and ``decode_attention_quant`` at
    32 heads of 80.
-14. the kernels summary line, then ``{"ok": true, "device": ...}``.
+14. multidevice (the multi-device layer) on an NCCL world of one rank on
+   the card (one GPU; more ranks wait for a machine with more):
+   ``serve.context_parallel.cp_decode_attention`` at gemma3-1b's long_500k
+   global layer (S = 524,288, 4 heads over 1 KV head of 256, bf16) against
+   ``layers.decode_attention`` (within 1e-2 of max|out|), and 16 slices of
+   32k combined by ``combine_partials`` against one shard in f32 (within
+   1e-5), at the last position and at one in the first slice (15 slices
+   fully masked); ``layers.moe_block_ep`` at qwen2-moe-a2.7b's full-width
+   block (60 experts of 1408, top-4, 4 shared; B = 4, T = 8, dense bf16)
+   equal to ``_moe_block_local``; the same block packed under
+   ``set_ep_mesh`` takes the local path: 3 lead-dim ``dequant_matmul``
+   launches.
+15. the kernels summary line, then ``{"ok": true, "device": ...}``.
 
 Every count of kernel launches is set to 0 just before a serve run and read
 just after it. Each profile phase also holds every ``decode_attention_quant``
@@ -3569,6 +3581,150 @@ def recurrent_cli(arch, mods, fmt):
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the multi-device layer on a world of one rank
+
+# gemma3-1b's long_500k global layer: one sequence, 4 query heads over 1 KV
+# head of 256, bf16 (256 MiB each for K and V); split into 16 slices of 32k
+CP_SHAPE = dict(B=1, S=524_288, H=4, K=1, hd=256)
+CP_SLICES = 16
+EP_TOKENS = (4, 8)                # qwen2-moe-a2.7b's block at B = 4, T = 8
+
+
+def multidevice_phase(dev, mods):
+    """The multi-device layer on an NCCL world of one rank on the card
+    (the machine has one GPU; NCCL refuses two ranks on one):
+    ``cp_decode_attention`` at gemma3-1b's long_500k global-layer shape
+    against ``layers.decode_attention`` (within 1e-2 of max|out|), and 16
+    slices' partials combined against the one-shard result in f32 (within
+    1e-5 of max|out|), at the last position and at one in the first slice
+    (15 slices fully masked); ``moe_block_ep`` at qwen2-moe-a2.7b's
+    full-width block with dense bf16 stacks equal to ``_moe_block_local``
+    (out and aux); the same block packed under ``set_ep_mesh`` takes the
+    local path, whose 3 lead-dim ``dequant_matmul`` launches are counted.
+    The world is destroyed when the phase ends. Returns the phase's run
+    (its launches)."""
+    import torch.distributed as dist
+    t0 = time.monotonic()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        cp = cp_check(dev)
+        ep, launches = ep_check(dev, mods)
+    finally:
+        dist.destroy_process_group()
+    emit(phase="multidevice", world="nccl, 1 rank", s=time.monotonic() - t0,
+         context_parallel=cp, expert_parallel=ep)
+    return [{"launches": launches}]
+
+
+def cp_check(dev):
+    import torch.distributed as dist
+    from repro_torch.models.layers import decode_attention
+    from repro_torch.serve.context_parallel import (NEG, combine_partials,
+                                                    cp_decode_attention,
+                                                    partial_attention)
+    B, S, H, K, hd = (CP_SHAPE[n] for n in ("B", "S", "H", "K", "hd"))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev
+                           ).to(torch.bfloat16)
+               for shape in ((B, 1, H, hd), (B, S, K, hd), (B, S, K, hd)))
+    qf, kf, vf = q.float(), k.float(), v.float()
+    flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8, device=dev)
+    S_loc = S // CP_SLICES
+    group = dist.group.WORLD
+    out = []
+    for qpos in (S - 1, S_loc // 2):
+        got = cp_decode_attention(q, k, v, qpos, group)
+        want = decode_attention(q, k, v, qpos)
+        rel = float((got.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+        check(bool(torch.isfinite(got).all()) and rel <= 1e-2,
+              f"cp_decode_attention at q_position {qpos}: {rel} of max|out|")
+        parts = [partial_attention(
+            qf, kf[:, i * S_loc:(i + 1) * S_loc],
+            vf[:, i * S_loc:(i + 1) * S_loc],
+            i * S_loc + torch.arange(S_loc, device=dev), qpos)
+            for i in range(CP_SLICES)]
+        m, l, acc = (torch.stack([p[j] for p in parts]) for j in range(3))
+        sliced = combine_partials(m, l, acc)
+        one = combine_partials(*(x[None] for x in partial_attention(
+            qf, kf, vf, torch.arange(S, device=dev), qpos)))
+        rel16 = float((sliced - one).abs().max() / one.abs().max())
+        masked = int((m.reshape(CP_SLICES, -1) == NEG).all(1).sum())
+        check(bool(torch.isfinite(sliced).all()) and rel16 <= 1e-5,
+              f"{CP_SLICES} slices at q_position {qpos}: {rel16} of "
+              "max|out|")
+        check(masked == (0 if qpos == S - 1 else CP_SLICES - 1),
+              f"{masked} fully masked slices at q_position {qpos}")
+        out.append(dict(
+            q_position=qpos, cp_vs_decode_attention=rel,
+            slices_vs_one_shard_f32=rel16, masked_slices=masked,
+            cp_ms=time_ms(lambda: cp_decode_attention(q, k, v, qpos, group),
+                          flush),
+            decode_attention_ms=time_ms(
+                lambda: decode_attention(q, k, v, qpos), flush),
+            bound_ms=bound_ms(2 * k.numel() * k.element_size(), 0)))
+    return out
+
+
+def ep_check(dev, mods):
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core import build_plan
+    from repro_torch.models import layers
+    cfg = configs.get_config(MOE_ARCH, "full")
+    D, E, F = cfg.d_model, cfg.n_experts, cfg.dff_expert
+    Fs = F * cfg.n_shared_experts
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def w(*shape):
+        return torch.randn(shape, generator=gen, device=dev) \
+            / math.sqrt(shape[-2])
+    master = layers.MoeParams(
+        w(D, E), w(E, D, F), w(E, D, F), w(E, F, D),
+        shared=layers.MlpParams(w(D, Fs), w(D, Fs), w(Fs, D)))
+    dense = layers.MoeParams(
+        *(t.to(torch.bfloat16) for t in master[:4]),
+        shared=layers.MlpParams(*(t.to(torch.bfloat16)
+                                  for t in master.shared)))
+    x = torch.randn(EP_TOKENS + (D,), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    names = ("w_gate", "w_up", "w_down")
+    stacks = {n: getattr(master, n) for n in names}
+    packed = build_plan(stacks, SPEC).pack(
+        stacks, {f"['{n}']": (1, 1) for n in names})
+    pp = dense._replace(**packed)
+    with torch.no_grad():
+        out_l, probs, choice = layers._moe_block_local(x, dense, cfg)
+        aux_l = layers.router_load_balancing_loss(probs, choice, E)
+        want_p = layers.moe_block(x, pp, cfg)
+        layers.set_ep_mesh(dist.group.WORLD, ())
+        try:
+            out_e, aux_e = layers.moe_block_ep(x, dense, cfg)
+            mods["dequant_matmul"].lead_launches = 0
+            ((got_p, text), launches) = served(
+                mods, lambda: quiet(layers.moe_block, x, pp, cfg))
+            lead = mods["dequant_matmul"].lead_launches
+        finally:
+            layers.set_ep_mesh(None, ())
+    check(torch.equal(out_e, out_l) and torch.equal(aux_e, aux_l),
+          "moe_block_ep on one rank differs from _moe_block_local: "
+          f"{float((out_e.float() - out_l.float()).abs().max())}, aux "
+          f"{float(aux_e)} vs {float(aux_l)}")
+    check("falls back to local" in text,
+          f"packed stacks under set_ep_mesh: no fallback message: {text!r}")
+    check(launches["dequant_matmul"] == 3 and lead == 3,
+          f"packed EP layer: {launches} launches, {lead} with a lead dim")
+    check(all(torch.equal(a, b) for a, b in zip(got_p, want_p)),
+          "the packed layer under set_ep_mesh differs from the local path")
+    return (dict(tokens=EP_TOKENS[0] * EP_TOKENS[1], experts=E, top_k=
+                 cfg.experts_per_token, out_equal=True, aux=float(aux_e),
+                 max_abs_out=float(out_e.float().abs().max()),
+                 packed_launches=launches, packed_lead_launches=lead),
+            launches)
+
+
 def timed_apply(apply, params, batch, cfg, dev):
     """``apply`` on ``batch`` (numpy) moved to ``dev``, under inference
     mode; returns (logits, seconds, the device synchronised)."""
@@ -3888,10 +4044,13 @@ def main() -> int:
     emit(phase="timing", rwkv6_end_s=time.monotonic() - t_start)
     zamba_runs = recurrent_phase(ZAMBA_ARCH, dev, mods, ("dense", "q8"))
     emit(phase="timing", zamba2_end_s=time.monotonic() - t_start)
+    multidevice_runs = multidevice_phase(dev, mods)
+    emit(phase="timing", multidevice_end_s=time.monotonic() - t_start)
 
     line = summary(rows, [paper, deepseek, *gemma, *alloc_runs, *train_runs,
                           *frontend_runs, *moe_runs, *whisper_runs,
-                          *internvl_runs, *rwkv_runs, *zamba_runs])
+                          *internvl_runs, *rwkv_runs, *zamba_runs,
+                          *multidevice_runs])
     emit(phase="timing", total_s=time.monotonic() - t_start)
     emit(kernels=line)
     emit(ok=True, device={"platform": "gpu",

@@ -130,6 +130,14 @@ class ModelConfig:
 _FAMILIES: Dict[str, "ModelFamily"] = {}
 
 
+def empty_pack_layouts(cfg) -> Dict[str, tuple]:
+    """The explicit "this family cannot serve packed" declaration: a family
+    with no packable tensor registers this as its ``pack_layouts``, so that
+    serving dense is a visible decision — ``ServeEngine.from_quantised(
+    packed=True)`` fails fast on it."""
+    return {}
+
+
 @dataclass
 class ModelFamily:
     """One architecture family's contract with the system (see the
@@ -138,7 +146,8 @@ class ModelFamily:
     Weights are applied only through ``models.layers.linear`` /
     ``embed_lookup``, so any tensor declared in ``pack_layouts`` serves
     straight from packed codes. ``pack_layouts(cfg) -> {tensor-path:
-    (n_lead, n_contract)}`` is required. ``finish_leaf(cfg, path, leaf) ->
+    (n_lead, n_contract)}`` is required (:func:`empty_pack_layouts` for a
+    family that cannot pack). ``finish_leaf(cfg, path, leaf) ->
     leaf``, where given, replaces the generic draw of the leaves a family
     initialises its own way (rwkv6's decay spread, zamba2's SSM vectors),
     leaf by leaf, so that ``init`` and the leaf-streamed
@@ -233,6 +242,21 @@ def get_family(name: str) -> ModelFamily:
 # ---------------------------------------------------------------------------
 # Spec utilities
 # ---------------------------------------------------------------------------
+
+def specs_to_sds(specs):
+    """The tree of ``specs`` as meta tensors of each spec's shape and dtype:
+    the counterpart of the reference's ``ShapeDtypeStruct`` tree. They hold
+    no storage, so a full-size tree costs nothing."""
+    return map_with_paths(
+        lambda _, s: torch.empty(s.shape, dtype=torch_dtype(s.dtype),
+                                 device="meta"), specs)
+
+
+def count_params(specs) -> int:
+    """Parameters of a ``ParamSpec`` tree."""
+    return sum(s.numel for _, s in flat_with_paths(specs)
+               if isinstance(s, ParamSpec))
+
 
 def init_leaves(specs, *, seed: int = 0, device=None, finish=None):
     """Yield ``(path, tensor)`` for every leaf of ``specs`` in sorted path

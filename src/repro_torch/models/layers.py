@@ -16,6 +16,13 @@ is written through ``block_quant`` (k and v of a layer in one
 ``block_quant_kv`` call) and read through
 ``decode_attention_quant``. Each is the CUDA kernel on the card and its
 plain version on the CPU.
+
+Multi-device hooks, set by the launchers (the dry run) and the identity
+until then: ``set_activation_sharding`` / ``constrain_act`` and
+``set_head_axis`` / ``constrain_heads`` redistribute DTensor activations
+between blocks and over heads (a plain tensor passes through);
+``set_ep_mesh`` routes ``moe_block`` through ``moe_block_ep``, per-rank
+expert parallelism over a ``torch.distributed`` group.
 """
 from __future__ import annotations
 
@@ -73,7 +80,82 @@ def linear(x, w, spec: str):
                                 w.codes, w.scales, w.codebook(),
                                 block=w.block, bits=w.bits)
         return y.reshape(B, T, *w.out_shape)
+    if _is_dtensor(x):
+        return _linear_dtensor(x, w.to(x.dtype), spec)
     return torch.einsum(spec, x, w.to(x.dtype))
+
+
+def _linear_dtensor(x, w, spec: str):
+    """``linear`` of DTensors (the dry run): one matmul of x's flattened
+    contraction dims against the weight flattened to 2-D, whose output is
+    split back into the weight's output dims by :func:`split_dim`. The
+    einsum itself would flatten the output and shard it over a mesh axis
+    wider than its leading output dim (4 heads on 16), and DTensor refuses
+    to split that back."""
+    ins, out = spec.replace(" ", "").split("->")
+    xs, ws = ins.split(",")
+    contract = "".join(c for c in ws if c in xs and c not in out)
+    wout = "".join(c for c in ws if c not in xs)
+    n_k, n_o = len(contract), len(wout)
+    if not (xs.endswith(contract) and out == xs[:-n_k] + wout):
+        raise ValueError(f"spec {spec!r}: x must end with the contraction "
+                         "and the output be x's leading dims and w's rest")
+    out_shape = tuple(w.shape[ws.index(c)] for c in wout)
+    xf = _merge_dims(x, x.ndim - n_k, n_k)
+    if _spec_orientation(spec) == "transposed":
+        wf = _merge_dims(_merge_dims(w, n_o, n_k), 0, n_o)
+        y = torch.einsum("...k,nk->...n", xf, wf)
+    else:
+        wf = _merge_dims(_merge_dims(w, 0, n_k), 1, n_o)
+        y = torch.einsum("...k,kn->...n", xf, wf)
+    return split_dim(y, y.ndim - 1, out_shape)
+
+
+def _merge_dims(t, d0: int, n: int):
+    """``t`` with its dims ``d0 .. d0+n-1`` merged into one. DTensor merges
+    a shard only of the leading merged dim and only an even one: a mesh
+    axis sharding another merged dim, or the leading one unevenly, is
+    gathered first."""
+    shape = (*t.shape[:d0], -1, *t.shape[d0 + n:])
+    if not _is_dtensor(t) or n == 1:
+        return t.reshape(shape)
+    from torch.distributed.tensor import Replicate, Shard
+    pl, mesh = t.placements, t.device_mesh
+    on = [i for i, q in enumerate(pl)
+          if isinstance(q, Shard) and d0 <= q.dim < d0 + n]
+    lead = [i for i in on if pl[i].dim == d0]
+    gather = [i for i in on if pl[i].dim > d0]
+    if t.shape[d0] % math.prod(mesh.size(i) for i in lead):
+        gather += lead
+    if gather:
+        t = t.redistribute(mesh, [Replicate() if i in gather else q
+                                  for i, q in enumerate(pl)])
+    return _pin(t.reshape(shape))
+
+
+def _pin(t):
+    """A DTensor as it is laid out, through ``redistribute``: the gradient
+    that comes back is laid out so too, so the backward of the reshape
+    before it (a split or merge of the other way) meets the layout the
+    forward checked, not whatever the next op's backward chose."""
+    return t.redistribute(t.device_mesh, t.placements)
+
+
+def split_dim(t, dim: int, sizes):
+    """``t`` with dim ``dim`` split into ``sizes``. A DTensor sharded on
+    that dim over mesh axes whose size does not divide ``sizes[0]`` (8 KV
+    heads over 16 ranks) is gathered on those axes first: DTensor refuses
+    to split an uneven shard."""
+    if _is_dtensor(t) and len(sizes) > 1:
+        from torch.distributed.tensor import Replicate, Shard
+        pl = t.placements
+        on = [i for i, q in enumerate(pl) if isinstance(q, Shard)
+              and q.dim == dim]
+        if sizes[0] % math.prod(t.device_mesh.size(i) for i in on):
+            t = t.redistribute(t.device_mesh, [
+                Replicate() if i in on else q for i, q in enumerate(pl)])
+        return _pin(t.reshape(*t.shape[:dim], *sizes, *t.shape[dim + 1:]))
+    return t.reshape(*t.shape[:dim], *sizes, *t.shape[dim + 1:])
 
 
 def expert_matmul(x, w, spec: str):
@@ -106,6 +188,70 @@ def embed_lookup(w, tokens, dtype=None):
                                  dtype=out_dt, nibble=nib)
     out = w[tokens.long()]
     return out if dtype is None else out.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activation sharding (set by the launcher: the dry run)
+# ---------------------------------------------------------------------------
+
+# Batch axes and the sequence-parallel axis of (batch, seq, ...) activations
+# between blocks, and the mesh axis of attention heads. None until a
+# launcher sets them; a plain tensor is never touched.
+_ACT_BATCH_AXES = None   # e.g. ("pod", "data") or ("data",)
+_ACT_SEQ_AXIS = None     # sequence parallelism: shard T between blocks
+_HEAD_AXIS = None
+
+
+def set_activation_sharding(batch_axes, seq_axis=None):
+    """batch_axes: tuple of mesh axis names for the batch dim, or None.
+    seq_axis: optional mesh axis for sequence parallelism between blocks."""
+    global _ACT_BATCH_AXES, _ACT_SEQ_AXIS
+    _ACT_BATCH_AXES = tuple(batch_axes) if batch_axes else None
+    _ACT_SEQ_AXIS = seq_axis
+
+
+def set_head_axis(axis):
+    global _HEAD_AXIS
+    _HEAD_AXIS = axis
+
+
+def _batch_part():
+    if not _ACT_BATCH_AXES:
+        return None
+    return (_ACT_BATCH_AXES[0] if len(_ACT_BATCH_AXES) == 1
+            else _ACT_BATCH_AXES)
+
+
+def _redistribute(x, spec):
+    """A DTensor ``x`` laid out as the per-dim ``spec``; anything else
+    unchanged."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    from repro_torch.launch.mesh import placements_for
+    return x.redistribute(x.device_mesh, placements_for(spec, x.device_mesh))
+
+
+def constrain_act(x):
+    """Lay out a (batch, seq, ...) activation between blocks: batch over the
+    batch axes, T over the sequence axis when it divides by 16. The
+    identity on a plain tensor or when nothing is set."""
+    if _ACT_BATCH_AXES is None and _ACT_SEQ_AXIS is None:
+        return x
+    seq = _ACT_SEQ_AXIS if (x.ndim >= 3 and _ACT_SEQ_AXIS is not None
+                            and x.shape[1] % 16 == 0) else None
+    spec = ((_batch_part(), seq) + (None,) * (x.ndim - 2) if x.ndim >= 2
+            else (_batch_part(),))
+    return _redistribute(x, spec)
+
+
+def constrain_heads(x):
+    """x: (B, T, H, hd) — H over the head axis (uneven allowed), B over the
+    batch axes. The identity on a plain tensor or when no axis is set."""
+    if _HEAD_AXIS is None or x.shape[-2] <= 1:
+        return x
+    spec = (_batch_part(),) + (None,) * (x.ndim - 3) + (_HEAD_AXIS, None)
+    return _redistribute(x, spec)
 
 
 def rms_norm(x, gain, eps: float = 1e-5, plus_one: bool = False):
@@ -216,9 +362,9 @@ def qkv_project(x, p: AttnParams, rot, cfg):
     if cfg.qk_norm and p.q_norm is not None:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
-    if rot is None:
-        return q, k, v
-    return apply_rope(q, *rot), apply_rope(k, *rot), v
+    if rot is not None:
+        q, k = apply_rope(q, *rot), apply_rope(k, *rot)
+    return constrain_heads(q), constrain_heads(k), constrain_heads(v)
 
 
 def attention_mask(q_positions, S: int, *, window=0, ring=False):
@@ -247,7 +393,7 @@ def attend(q, k_cache, v_cache, mask):
     to v's dtype)."""
     B, T, H, hd = q.shape
     K = k_cache.shape[2]
-    qg = q.reshape(B, T, K, H // K, hd)
+    qg = split_dim(q, 2, (K, H // K))
     s = torch.einsum("btkgh,bskh->btkgs", qg, k_cache.to(qg.dtype))
     s = (s.float() * hd ** -0.5).masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
@@ -276,7 +422,7 @@ def decode_attention(q, k_cache, v_cache, q_position, *, window=0,
             bits=codebook_bits(codebook))
     B, _, H, hd = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
-    qg = q.reshape(B, K, H // K, hd)
+    qg = split_dim(q, 2, (K, H // K))[:, 0]
     s = torch.einsum("bkgh,bskh->bkgs", qg, k_cache.to(qg.dtype))
     s = s.float() * hd ** -0.5
     qp = torch.as_tensor(q_position, device=q.device)
@@ -348,9 +494,46 @@ def write_kv(cache, new, rows, slots, codebook=None, dest=None):
         kops.block_quant(new.reshape(B * T * K, hd).contiguous(), codebook,
                          block=hd, pack=codebook_bits(codebook) == 4,
                          out=(cache.codes, cache.scales), rows=dest)
+    elif _is_dtensor(cache):
+        _write_local(cache, new, slots)
     else:
         cache[rows, slots] = new.to(cache.dtype)
     return cache
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _write_local(cache, new, slots):
+    """The in-place write of :func:`write_kv` into a DTensor cache (B, S,
+    K, hd) (the dry run), made by every rank into its own shard. The new
+    entries are laid out as the cache on B and K and whole on T, their
+    slots as the cache on B; a rank's rows are its batch shard's, in order
+    (``cache_slots`` writes every row). On a cache split on S, a rank
+    writes the entries whose slot falls in its range and rewrites the
+    others' clamped targets with what they held, one token t at a time so
+    that no two entries of a step share a target."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, pl = cache.device_mesh, cache.placements
+    local = cache.to_local()
+    _, off = compute_local_shape_and_global_offset(cache.shape, mesh, pl)
+    new_l = new.to(cache.dtype).redistribute(mesh, [
+        q if isinstance(q, Shard) and q.dim != 1 else Replicate()
+        for q in pl]).to_local()
+    slots_l = slots.redistribute(mesh, [
+        q if isinstance(q, Shard) and q.dim == 0 else Replicate()
+        for q in pl]).to_local() - off[1]
+    S_loc = local.shape[1]
+    rows = torch.arange(local.shape[0], device=local.device)
+    for t in range(new_l.shape[1]):
+        at = slots_l[:, t]
+        mine = ((at >= 0) & (at < S_loc))[:, None, None]
+        at = at.clamp(0, S_loc - 1)
+        local[rows, at] = torch.where(mine, new_l[:, t], local[rows, at])
 
 
 def write_kv_pair(k_cache, v_cache, k_new, v_new, rows, slots,
@@ -448,7 +631,7 @@ def flash_attention(q, k, v, q_positions, k_positions, *, causal: bool = True,
     B, Tq, H, hd = q.shape
     Tk, K = k.shape[1], k.shape[2]
     G = H // K
-    qg = q.reshape(B, Tq, K, G, hd)
+    qg = split_dim(q, 2, (K, G))
     scale = hd ** -0.5
     chunk = min(chunk, Tk)
     pad = (-Tk) % chunk
@@ -497,7 +680,7 @@ def attn_block(x, p: AttnParams, positions, cfg, window: int = 0):
     q, k, v = qkv_project(x, p, rot, cfg)
     o = flash_attention(q, k, v, positions, positions, causal=True,
                         window=window, chunk=cfg.attn_chunk)
-    return linear(o, p.wo, "btnh,nhd->btd")
+    return linear(constrain_heads(o), p.wo, "btnh,nhd->btd")
 
 
 # ---------------------------------------------------------------------------
@@ -546,18 +729,79 @@ def route(probs, k: int):
     return vals[:, :k], idx[:, :k]
 
 
+# Expert-parallel execution context, set by the launcher (like activation
+# sharding). When set, ``moe_block`` runs ``moe_block_ep``: experts are
+# owned by the ranks of the model group, activations (replicated across the
+# model group, split by batch over the batch axes) are routed on every rank
+# to its own experts, and the expert outputs combine with one all-reduce
+# over the model group — the collective cost of a dense tensor-parallel MLP.
+class _EpContext(NamedTuple):
+    group: object            # the model group's ProcessGroup
+    batch_groups: tuple      # ProcessGroups of the batch axes (aux mean)
+    batch_axes: tuple
+    model_axis: str
+
+
+_EP_MESH: Optional[_EpContext] = None
+_EP_PACKED_FALLBACK_LOGGED = False
+
+
+def set_ep_mesh(mesh_or_group, batch_axes, model_axis="model"):
+    """Route ``moe_block`` through ``moe_block_ep`` over ``model_axis`` of a
+    ``DeviceMesh`` (its ``batch_axes`` take part in the aux loss's mean), or
+    over a bare ``ProcessGroup`` (every rank a model rank, no batch axes);
+    ``None`` turns it off."""
+    global _EP_MESH
+    batch_axes = tuple(batch_axes) if batch_axes else ()
+    if mesh_or_group is None:
+        _EP_MESH = None
+    elif getattr(mesh_or_group, "mesh_dim_names", None) is None:
+        if batch_axes:
+            raise ValueError("batch axes need a DeviceMesh, not a bare "
+                             "process group")
+        _EP_MESH = _EpContext(mesh_or_group, (), (), model_axis)
+    else:
+        mesh = mesh_or_group
+        _EP_MESH = _EpContext(mesh.get_group(model_axis),
+                              tuple(mesh.get_group(a) for a in batch_axes),
+                              batch_axes, model_axis)
+
+
+def _ep_route(p: MoeParams) -> bool:
+    """Take ``moe_block_ep``? Packed expert stacks keep the local
+    sort-dispatch path (the EP path pads and casts expert weights, which
+    would densify the codes), and say so once: ``dequant_matmul``'s lead dim
+    still carries them."""
+    global _EP_PACKED_FALLBACK_LOGGED
+    if _EP_MESH is None:
+        return False
+    if not any(isinstance(w, PackedTensor)
+               for w in (p.w_gate, p.w_up, p.w_down)):
+        return True
+    if not _EP_PACKED_FALLBACK_LOGGED:
+        _EP_PACKED_FALLBACK_LOGGED = True
+        print("[moe] packed expert stacks: the expert-parallel path falls "
+              "back to local sort-dispatch (packed expert-parallel dispatch "
+              "is a recorded follow-up)")
+    return False
+
+
 def moe_block(x, p: MoeParams, cfg):
     """Top-k routed experts (plus shared experts): (out (B, T, D), the
-    router's load-balancing loss). The reference's expert-parallel branch
-    (``moe_block_ep``) is not ported: every call takes the local
-    sort-dispatch path."""
+    router's load-balancing loss). Under ``set_ep_mesh`` dense expert
+    stacks take ``moe_block_ep``; otherwise (and for packed stacks) the
+    local sort-dispatch path."""
+    if _ep_route(p):
+        return moe_block_ep(x, p, cfg)
     out, probs, choice = _moe_block_local(x, p, cfg)
     return out, router_load_balancing_loss(probs, choice, cfg.n_experts)
 
 
 def moe_block_out(x, p: MoeParams, cfg):
     """``moe_block``'s output alone, for the decode step, which has no use
-    for the loss: its launches are never made."""
+    for the loss: on the local path its launches are never made."""
+    if _ep_route(p):
+        return moe_block_ep(x, p, cfg)[0]
     return _moe_block_local(x, p, cfg)[0]
 
 
@@ -623,6 +867,150 @@ def _moe_block_local(x, p: MoeParams, cfg):
     if p.shared is not None:
         out = out + swiglu(x, p.shared)
     return out, probs, choice
+
+
+def moe_block_ep(x, p: MoeParams, cfg):
+    """Expert parallelism over the ``set_ep_mesh`` model group, run by every
+    rank on its own tokens (the reference's ``shard_map`` body). E pads to
+    ``E_pad``, a multiple of the group size M; dummy experts get ``NEG_INF``
+    router logits; rank m owns experts ``[m·E_loc, (m+1)·E_loc)``. Each
+    rank routes all its tokens, keeps the dispatches to its experts (at most
+    ``cap = max(ceil(capacity_factor·k·N/E), 4)`` each, N the rank's tokens,
+    ranked by a stable sort within each local expert), runs three
+    ``expert_matmul`` and sums its weighted rows; one all-reduce over the
+    group combines them. The aux loss is averaged over the model group and
+    the batch axes.
+
+    ``x`` (B, T, D) is a plain tensor, the same on every rank of the group
+    (the batch split is the caller's), or a DTensor (the dry run): it is
+    laid out batch over the batch axes and replicated over the model axis,
+    and the local rows are computed on. Expert stacks are plain (E, D, F)
+    on every rank, or DTensors; either way a rank reads only its slice."""
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+
+    ctx = _EP_MESH
+    M, m = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+    E, k = cfg.n_experts, cfg.experts_per_token
+    E_pad = -(-E // M) * M
+    E_loc = E_pad // M
+    xl, wrap = _ep_local(x, ctx)
+    dt = xl.dtype
+    wr = _ep_whole(p.w_router).to(dt)
+    if E_pad != E:
+        wr = torch.nn.functional.pad(wr, (0, E_pad - E))
+    wg, wu, wd = (_ep_expert_slice(w, m, M, E, E_loc, dt)
+                  for w in (p.w_gate, p.w_up, p.w_down))
+
+    Bl, Tl, D = xl.shape
+    N = Bl * Tl
+    dev = xl.device
+    xt = xl.reshape(N, D)
+    logits = linear(xt[None], wr, "btd,de->bte")[0].float()
+    if E_pad != E:  # mask dummy experts
+        logits = logits.masked_fill(torch.arange(E_pad, device=dev) >= E,
+                                    NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, choice = route(probs, k)                  # (N, k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True),
+                                        min=1e-9)
+    local_e = choice.reshape(-1) - m * E_loc             # (N·k,)
+    mine = (local_e >= 0) & (local_e < E_loc)
+    key = torch.where(mine, local_e, E_loc)              # others sort last
+    cap = max(math.ceil(cfg.capacity_factor * k * N / E), 4)
+
+    # rank of each dispatch within its local expert (stable sort)
+    order = torch.argsort(key, stable=True)
+    sorted_e = key[order]
+    starts = torch.searchsorted(sorted_e, torch.arange(E_loc, device=dev),
+                                side="left")
+    rank = torch.empty_like(key)
+    rank[order] = (torch.arange(N * k, device=dev)
+                   - starts[sorted_e.clamp(max=E_loc - 1)])
+    keep = mine & (rank < cap)
+    safe_rank = torch.where(keep, rank, cap - 1)
+
+    # dispatch: (E_loc, cap, D), the rest parked in row E_loc·cap
+    tok_idx = torch.arange(N * k, device=dev) // k
+    slot = local_e.clamp(0, E_loc - 1) * cap + safe_rank
+    buf = torch.zeros((E_loc * cap + 1, D), dtype=dt, device=dev)
+    buf[torch.where(keep, slot, E_loc * cap)] = xt[tok_idx]
+    buf = buf[:E_loc * cap].view(E_loc, cap, D)
+
+    g = expert_matmul(buf, wg, "ecd,edf->ecf")
+    u = expert_matmul(buf, wu, "ecd,edf->ecf")
+    h = torch.nn.functional.silu(g) * u
+    y = expert_matmul(h, wd, "ecf,efd->ecd")
+
+    # this rank's weighted rows in choice order, then the sum over ranks
+    y_tok = y.reshape(E_loc * cap, D)[slot]
+    w = torch.where(keep, gate_vals.reshape(-1), 0.0).to(dt)
+    contrib = (y_tok * w[:, None]).view(N, k, D)
+    out = contrib[:, 0]
+    for j in range(1, k):
+        out = out + contrib[:, j]
+    out = funcol.all_reduce(out, "sum", ctx.group)
+
+    aux = router_load_balancing_loss(probs[:, :E], choice, E)
+    for grp in (ctx.group,) + ctx.batch_groups:
+        aux = funcol.all_reduce(aux, "sum", grp) / dist.get_world_size(grp)
+    out, aux = wrap(out.reshape(Bl, Tl, D), aux)
+    if p.shared is not None:
+        out = out + swiglu(x, p.shared)
+    return out, aux
+
+
+def _ep_local(x, ctx: _EpContext):
+    """This rank's tokens of ``x``, and how to wrap (out, aux) back: the
+    identity for a plain tensor; for a DTensor, batch over the batch axes,
+    replicated over the model axis, ``out`` in that layout and ``aux``
+    replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        return x, lambda out, aux: (out, aux)
+    from repro_torch.launch.mesh import placements_for
+    mesh = x.device_mesh
+    bax = (None if not ctx.batch_axes else ctx.batch_axes[0]
+           if len(ctx.batch_axes) == 1 else ctx.batch_axes)
+    pl = placements_for((bax, None, None), mesh)
+    shape, stride = x.shape, x.stride()
+
+    def wrap(out, aux):
+        return (DTensor.from_local(out, mesh, pl, run_check=False,
+                                   shape=shape, stride=stride),
+                DTensor.from_local(aux, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False))
+    return x.redistribute(mesh, pl).to_local(), wrap
+
+
+def _ep_whole(w):
+    """The whole of ``w`` on this rank (a DTensor is replicated first)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(w, DTensor):
+        return w.redistribute(w.device_mesh,
+                              [Replicate()] * w.device_mesh.ndim).to_local()
+    return w
+
+
+def _ep_expert_slice(w, m: int, M: int, E: int, E_loc: int, dt):
+    """Rank ``m``'s experts ``[m·E_loc, (m+1)·E_loc)`` of a stack (E, ·, ·)
+    padded with zero experts to M·E_loc, in ``dt``. A DTensor stack is cast
+    first (it then moves ``dt`` bytes); one whose E splits evenly over M is
+    laid out E over the model axis and read locally."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(w, DTensor):
+        w = w.to(dt)
+        if E == M * E_loc:
+            from repro_torch.launch.mesh import placements_for
+            return w.redistribute(w.device_mesh, placements_for(
+                (_EP_MESH.model_axis, None, None), w.device_mesh)).to_local()
+        w = _ep_whole(w)
+    lo = m * E_loc
+    part = w[lo:max(lo, min(lo + E_loc, E))].to(dt)
+    if part.shape[0] < E_loc:
+        part = torch.nn.functional.pad(
+            part, (0, 0, 0, 0, 0, E_loc - part.shape[0]))
+    return part
 
 
 def router_load_balancing_loss(probs, choice, E: int):

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from .api import (ModelConfig, ModelFamily, ParamSpec, init_from_specs,
                   ragged_prologue, register_family, torch_dtype)
-from .layers import embed_lookup, linear, rms_norm
+from .layers import constrain_act, embed_lookup, linear, rms_norm
 from .transformer import _layer
 from .whisper import _loop
 
@@ -245,10 +245,11 @@ def channel_mix(x, lp, cfg, last_x=None, valid=None):
 
 def _block(cfg):
     def body(x, lp):
+        x = constrain_act(x)
         h, _ = time_mix(rms_norm(x, lp["norm_tm"], cfg.norm_eps), lp, cfg)
         x = x + h
         h, _ = channel_mix(rms_norm(x, lp["norm_cm"], cfg.norm_eps), lp, cfg)
-        return x + h
+        return constrain_act(x + h)
     return body
 
 

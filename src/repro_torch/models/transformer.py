@@ -28,9 +28,9 @@ from repro_torch.core.tensor_format import PackedTensor
 from .api import (ModelConfig, ModelFamily, ParamSpec, init_from_specs,
                   register_family, ring_prologue, torch_dtype)
 from .layers import (AttnParams, MlpParams, MoeParams, QuantisedKV,
-                     attn_block, attn_decode, embed_lookup, linear,
-                     moe_block, moe_block_out, rms_norm, rope_tables,
-                     step_geometry, swiglu)
+                     attn_block, attn_decode, constrain_act, embed_lookup,
+                     linear, moe_block, moe_block_out, rms_norm,
+                     rope_tables, step_geometry, swiglu)
 
 
 # ---------------------------------------------------------------------------
@@ -144,12 +144,14 @@ def _scan_layers(cfg: ModelConfig, x, layers, positions):
     remat = cfg.remat in ("full", "dots") and torch.is_grad_enabled()
     aux = 0.0
     for i, window in enumerate(cfg.window_pattern()):
-        args = (cfg, x, _layer(layers, i), int(window), positions)
+        args = (cfg, constrain_act(x), _layer(layers, i), int(window),
+                positions)
         if remat:
             x, a = torch.utils.checkpoint.checkpoint(_layer_body, *args,
                                                      use_reentrant=False)
         else:
             x, a = _layer_body(*args)
+        x = constrain_act(x)
         aux = aux + a
     return x, aux
 

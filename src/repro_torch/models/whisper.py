@@ -27,8 +27,9 @@ import torch.utils.checkpoint
 from .api import (ModelConfig, ModelFamily, ParamSpec, init_from_specs,
                   register_family, ring_prologue, torch_dtype)
 from .layers import (AttnParams, QuantisedKV, attend, attention_mask,
-                     attn_decode, embed_lookup, flash_attention, gelu_mlp,
-                     linear, qkv_project, rope_tables, step_geometry)
+                     attn_decode, constrain_act, embed_lookup,
+                     flash_attention, gelu_mlp, linear, qkv_project,
+                     rope_tables, step_geometry)
 from .transformer import _at, _layer
 
 
@@ -99,13 +100,14 @@ def _loop(cfg: ModelConfig, body, x, layers, n_layers: int, *args):
 
 def _enc_layer(cfg: ModelConfig):
     def body(x, lp, positions):
+        x = constrain_act(x)
         h = layer_norm(x, lp["self_norm"], cfg.norm_eps)
         q, k, v = qkv_project(h, _self_params(lp), None, cfg)  # no rotation
         o = flash_attention(q, k, v, positions, positions, causal=False,
                             chunk=cfg.attn_chunk)
         x = x + linear(o, lp["self_wo"], "btnh,nhd->btd")
         h = layer_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        return x + gelu_mlp(h, lp["w_in"], lp["w_out"])
+        return constrain_act(x + gelu_mlp(h, lp["w_in"], lp["w_out"]))
     return body
 
 
@@ -121,6 +123,7 @@ def encode(params, frames, cfg: ModelConfig):
 
 def _dec_layer(cfg: ModelConfig):
     def body(x, lp, enc_out, positions, enc_positions):
+        x = constrain_act(x)
         # causal self attention (RoPE)
         rot = rope_tables(positions, cfg.hd, cfg.rope_theta)
         h = layer_norm(x, lp["self_norm"], cfg.norm_eps)
@@ -137,7 +140,7 @@ def _dec_layer(cfg: ModelConfig):
                              causal=False, chunk=cfg.attn_chunk)
         x = x + linear(oc, lp["cross_wo"], "btnh,nhd->btd")
         h = layer_norm(x, lp["mlp_norm"], cfg.norm_eps)
-        return x + gelu_mlp(h, lp["w_in"], lp["w_out"])
+        return constrain_act(x + gelu_mlp(h, lp["w_in"], lp["w_out"]))
     return body
 
 

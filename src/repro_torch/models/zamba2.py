@@ -31,8 +31,8 @@ import torch.nn.functional as F
 from .api import (ModelConfig, ModelFamily, ParamSpec, init_from_specs,
                   register_family, ring_prologue, torch_dtype)
 from .layers import (AttnParams, MlpParams, QuantisedKV, attn_block,
-                     attn_decode, causal_conv1d, embed_lookup, linear,
-                     rms_norm, rope_tables, step_geometry, swiglu)
+                     attn_decode, causal_conv1d, constrain_act, embed_lookup,
+                     linear, rms_norm, rope_tables, step_geometry, swiglu)
 from .transformer import _at, _layer
 from .whisper import _loop
 
@@ -227,9 +227,10 @@ def _group(cfg):
     def body(x, gp, shared, positions):
         for j in range(_groups(cfg)[1]):
             lp = _layer(gp, j)
+            x = constrain_act(x)
             h, _ = mamba_layer(rms_norm(x, lp["norm"], cfg.norm_eps), lp, cfg)
-            x = x + h
-        return _shared_attn_block(x, shared, positions, cfg)
+            x = constrain_act(x + h)
+        return constrain_act(_shared_attn_block(x, shared, positions, cfg))
     return body
 
 
