@@ -173,7 +173,11 @@ Phases, each printed as JSON lines:
    block (60 experts of 1408, top-4, 4 shared; B = 4, T = 8, dense bf16)
    equal to ``_moe_block_local``; the same block packed under
    ``set_ep_mesh`` takes the local path: 3 lead-dim ``dequant_matmul``
-   launches.
+   launches. On a line of its own: 3 steps of 8-bit Adam on gemma3-1b's
+   (1152, 6912) MLP leaf as DTensors, bit for bit the plain update (params,
+   codes, scales), and that state saved and restored with
+   ``restore_checkpoint(shardings=)`` onto another layout, bit for bit once
+   gathered.
 15. the kernels summary line, then ``{"ok": true, "device": ...}``.
 
 Every count of kernel launches is set to 0 just before a serve run and read
@@ -3589,6 +3593,7 @@ def recurrent_cli(arch, mods, fmt):
 CP_SHAPE = dict(B=1, S=524_288, H=4, K=1, hd=256)
 CP_SLICES = 16
 EP_TOKENS = (4, 8)                # qwen2-moe-a2.7b's block at B = 4, T = 8
+SHARDED_ARCH = "gemma3-1b"        # its (d_model, d_ff) MLP leaf: 8M elements
 
 
 def multidevice_phase(dev, mods):
@@ -3603,7 +3608,8 @@ def multidevice_phase(dev, mods):
     (out and aux); the same block packed under ``set_ep_mesh`` takes the
     local path, whose 3 lead-dim ``dequant_matmul`` launches are counted.
     The world is destroyed when the phase ends. Returns the phase's run
-    (its launches)."""
+    (its launches). Then, on a line of its own, the training state on
+    DTensors (``sharded_state_check``)."""
     import torch.distributed as dist
     t0 = time.monotonic()
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
@@ -3611,11 +3617,99 @@ def multidevice_phase(dev, mods):
     try:
         cp = cp_check(dev)
         ep, launches = ep_check(dev, mods)
+        t1 = time.monotonic()
+        state = sharded_state_check(dev)
+        state_s = time.monotonic() - t1
     finally:
         dist.destroy_process_group()
     emit(phase="multidevice", world="nccl, 1 rank", s=time.monotonic() - t0,
          context_parallel=cp, expert_parallel=ep)
+    emit(phase="multidevice", part="sharded_state", s=state_s, **state)
     return [{"launches": launches}]
+
+
+def sharded_state_check(dev):
+    """8-bit Adam on DTensors and a sharded restore, on the world's mesh
+    of one rank: gemma3-1b's (d_model, d_ff) MLP leaf with its last dim
+    sharded (so the moments' block-count dim is sharded too), 3 steps of
+    ``adam_update(quantised_state=True)``, equal bit for bit to the plain
+    update of the same tensors (params, and the moments' codes and
+    scales); then that state saved and restored with
+    ``restore_checkpoint(shardings=)`` onto its first dim: ``full_tensor()``
+    equal bit for bit to the saved arrays, and the moments requantised
+    through the template equal to an unsharded restore's."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+    from repro_torch import configs
+    from repro_torch.launch.mesh import NamedSharding
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import (AdamConfig, adam_init,
+                                             adam_update)
+    t0 = time.monotonic()
+    cfg = configs.get_config(SHARDED_ARCH, "full")
+    shape = (cfg.d_model, cfg.d_ff)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    w = torch.randn(shape, generator=gen, device=dev)
+    grads = [torch.randn(shape, generator=gen, device=dev) for _ in range(3)]
+    acfg = AdamConfig(quantised_state=True)
+    mesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("model",))
+    p, o = {"w": w}, adam_init({"w": w}, acfg)
+    pd = {"w": distribute_tensor(w, mesh, [Shard(1)])}
+    od = adam_init(pd, acfg)
+    for g in grads:
+        p, o = adam_update({"w": g}, o, p, 1e-3, acfg)
+        pd, od = adam_update({"w": distribute_tensor(g, mesh, [Shard(1)])},
+                             od, pd, 1e-3, acfg)
+    pairs = [("params", pd["w"], p["w"])] + [
+        (f"{k}.{f}", getattr(od[k]["w"], f), getattr(o[k]["w"], f))
+        for k in ("m", "v") for f in ("codes", "scales")]
+    for name, got, want in pairs:
+        check(isinstance(got, DTensor) and got.placements == (Shard(1),)
+              and torch.equal(got.full_tensor(), want),
+              f"8-bit Adam on DTensors: {name} differs from the plain "
+              "update")
+    torch.cuda.synchronize()
+    adam_s = time.monotonic() - t0
+
+    t0 = time.monotonic()
+    root = Path(__file__).resolve().parent / "runs" / "chip_smoke_sharded"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        path = ckpt.save_checkpoint(str(root), {"params": pd, "opt": od}, 3)
+        rows = NamedSharding(mesh, (Shard(0),))
+        shardings = {"params": {"w": rows},
+                     "opt": {"m": {"w": rows}, "v": {"w": rows},
+                             "step": NamedSharding(mesh, (Replicate(),))}}
+        back, _ = ckpt.restore_checkpoint(path, shardings=shardings)
+        with np.load(os.path.join(path, "arrays.npz")) as npz:
+            for key, got in (("params/w", back["params"]["w"]),
+                             ("opt/m/w", back["opt"]["m"]["w"]),
+                             ("opt/v/w", back["opt"]["v"]["w"])):
+                check(got.placements == (Shard(0),)
+                      and got.to_local().device == w.device
+                      and torch.equal(got.full_tensor().cpu(),
+                                      torch.from_numpy(npz[key])),
+                      f"sharded restore: {key} differs from the saved array")
+        placed, _ = ckpt.restore_checkpoint(
+            path, template={"params": pd, "opt": od}, shardings=shardings)
+        whole, _ = ckpt.restore_checkpoint(
+            path, template={"params": p, "opt": o})
+        for k in ("m", "v"):
+            for f in ("codes", "scales"):
+                check(torch.equal(getattr(placed["opt"][k]["w"],
+                                          f).full_tensor(),
+                                  getattr(whole["opt"][k]["w"], f)),
+                      f"sharded restore: requantised {k}.{f} differs from "
+                      "an unsharded restore")
+        nbytes = os.path.getsize(os.path.join(path, "arrays.npz"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    return dict(leaf=f"{SHARDED_ARCH} mlp {shape}", steps=len(grads),
+                adam_8bit_dtensor_bitwise=True, adam_s=adam_s,
+                sharded_restore_bitwise=True, restore_s=time.monotonic() - t0,
+                checkpoint_bytes=nbytes)
 
 
 def cp_check(dev):

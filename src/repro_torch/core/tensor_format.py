@@ -295,6 +295,13 @@ class TensorFormat:
         return torch.sqrt(torch.sum(w * err * err) / torch.sum(w * x32 * x32))
 
 
+def fake_quant_jit(fmt: TensorFormat, x: torch.Tensor) -> torch.Tensor:
+    """``fmt.fake_quant(x)``: the reference's name for its ``jax.jit``
+    wrapper with the format static. Torch runs eagerly and has no such
+    compile to mirror, so this is the plain call."""
+    return fmt.fake_quant(x)
+
+
 def _code_histogram(codes: torch.Tensor, n_codes: int | None) -> np.ndarray:
     """``compress.code_histogram`` of a code tensor, counted on its device:
     the same int64 counts (a codebook's codes from 0; a grid's from its

@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 
 from .block_quant.block_quant import block_quant_cuda, block_quant_kv_cuda
-from .block_quant.ref import block_quant_ref, pack_pairs
+from .block_quant.ref import block_dequant_ref, block_quant_ref, pack_pairs
 from .decode_attention.decode_attention import decode_attention_quant_cuda
 from .decode_attention.ref import decode_attention_quant_ref, dequant_kv_ref
 from .dequant_matmul.dequant_matmul import dequant_matmul_cuda
@@ -52,6 +52,14 @@ def block_quant(x, codebook, block: int = 128, *, pack: bool = False,
         return block_quant_cuda(x, codebook, block, pack=pack, out=out,
                                 rows=rows)
     return _block_quant_plain(x, codebook, block, pack, out, rows)
+
+
+def block_dequant(codes, scales, codebook, block: int = 128,
+                  dtype=torch.bfloat16) -> torch.Tensor:
+    """Codes (rows, cols) uint8 and scales (rows, cols // block) back to
+    values in ``dtype``: codebook[code] × its block's scale. Plain torch on
+    every device, as the reference's runs its oracle everywhere."""
+    return block_dequant_ref(codes, scales, codebook, block, dtype)
 
 
 def block_quant_kv(k, v, codebook, block: int, *, pack: bool = False,

@@ -16,6 +16,7 @@ placements per mesh dim.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch.distributed as dist
@@ -200,6 +201,24 @@ def shardings_for_specs(spec_tree, mesh, rules: RuleSet):
     return map_with_paths(
         lambda _, s: placements_for(spec_for(s.axes, s.shape, mesh, rules),
                                     mesh), spec_tree)
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A mesh and one DTensor placement per mesh dim: the port's
+    counterpart of ``jax.sharding.NamedSharding`` (what
+    ``train.checkpoint.restore_checkpoint(shardings=)`` takes per leaf)."""
+    mesh: object
+    placements: tuple
+
+
+def named_shardings(spec_tree, mesh, rules: RuleSet):
+    """tree[ParamSpec] -> tree[NamedSharding] over ``mesh``: the placements
+    of :func:`shardings_for_specs` with their mesh."""
+    from repro_torch.core.plan import map_with_paths
+
+    return map_with_paths(lambda _, p: NamedSharding(mesh, p),
+                          shardings_for_specs(spec_tree, mesh, rules))
 
 
 def describe_sharding(spec_tree, mesh, rules: RuleSet) -> str:

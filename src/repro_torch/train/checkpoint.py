@@ -14,8 +14,10 @@ leaves on restore. No bfloat16 array goes into an npz (numpy has no such
 dtype without ``ml_dtypes``): bf16 leaves are saved as f32, exactly, and
 cast back to the template's dtype on restore. ``save_quantised_params`` is
 the compressed path for parameter-only serving checkpoints. Arrays are
-saved unsharded; the port runs on one device, so a restore takes no
-shardings.
+saved unsharded: a DTensor leaf is gathered on save (every rank of its mesh
+calls ``save_checkpoint``; rank 0 writes), so the file does not depend on
+the mesh, and ``restore_checkpoint(shardings=)`` places it onto any mesh
+(the reference's elastic restore).
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.tensor_format import QuantisedTensor
 from repro_torch.models.api import resolve_device
@@ -58,9 +61,11 @@ def _is_opt_state(d) -> bool:
 
 def _to_numpy(x) -> np.ndarray:
     """A leaf as a numpy array for the npz: bf16 (and other sub-f32 floats)
-    widened to f32, which holds them exactly."""
+    widened to f32, which holds them exactly; a DTensor gathered whole."""
     if isinstance(x, torch.Tensor):
         x = x.detach()
+        if _is_dtensor(x):
+            x = x.full_tensor()
         if x.is_floating_point() and x.dtype != torch.float64:
             x = x.float()
         return x.cpu().numpy()
@@ -114,9 +119,21 @@ def _publish(ckpt_dir: str, name: str, flat: dict, manifest: dict) -> str:
 
 
 def save_checkpoint(ckpt_dir: str, state, step: int, meta: dict | None = None):
+    """Publish ``state`` as ``<ckpt_dir>/step_<step>``. A state that holds
+    DTensors is gathered on every rank (a collective: each rank calls this),
+    written by rank 0 alone, and the call returns once it is published."""
+    sharded = any(_is_dtensor(x.codes if isinstance(x, QuantisedTensor)
+                              else x)
+                  for x in _flatten_dict(state).values())
     flat = _flatten_dict(_canonicalise(state))
-    return _publish(ckpt_dir, f"step_{step:08d}", flat,
-                    {"step": step, "n_arrays": len(flat), **(meta or {})})
+    name = f"step_{step:08d}"
+    manifest = {"step": step, "n_arrays": len(flat), **(meta or {})}
+    if not (sharded and dist.is_initialized()):
+        return _publish(ckpt_dir, name, flat, manifest)
+    if dist.get_rank() == 0:
+        _publish(ckpt_dir, name, flat, manifest)
+    dist.barrier()
+    return os.path.join(ckpt_dir, name)
 
 
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
@@ -131,45 +148,81 @@ def restore_checkpoint(path: str, template=None, shardings=None):
     """Returns (state, meta). Without ``template`` the arrays come back as
     CPU tensors in the saved dtypes; with ``template`` (a state tree) each
     is cast to its template leaf's dtype and device, and quantised moments
-    are requantised into the template's format."""
-    if shardings is not None:
-        raise ValueError("restore_checkpoint: the port runs on one device; "
-                         "shardings must be None")
+    are requantised into the template's format. ``shardings``, a tree that
+    matches the state with ``launch.mesh.NamedSharding`` leaves (None keeps
+    a leaf whole), places each leaf onto its mesh with
+    ``distribute_tensor``: elastic restore, since the file does not depend
+    on the mesh it was saved from. A quantised moment's sharding is its
+    parameter's: the f32 moment is placed, then requantised shard by shard
+    (``train.optimizer``), so codes and scales take the block layout."""
     with open(os.path.join(path, "manifest.json")) as f:
         meta = json.load(f)
     with np.load(os.path.join(path, "arrays.npz")) as npz:
         tree = _unflatten_dict({k: torch.from_numpy(npz[k])
                                 for k in npz.files})
     if template is not None:
-        tree = _match_template(template, tree)
+        tree = _match_template(template, tree, shardings)
+    elif shardings is not None:
+        tree = _zip_map(_place, tree, shardings)
     return tree, meta
 
 
-def _match_template(template, tree):
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _zip_map(fn, tree, *others):
+    """``fn(leaf, *other_leaves)`` over ``tree`` and trees matching it (an
+    other that is None stays None throughout)."""
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, *(None if o is None else o[k]
+                                     for o in others))
+                for k, v in tree.items()}
+    return fn(tree, *others)
+
+
+def _place(x, sharding):
+    """``x`` whole on every rank -> a DTensor of ``sharding``'s layout (each
+    rank keeps its own piece; nothing is sent)."""
+    if sharding is None:
+        return x
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(x, sharding.mesh, sharding.placements,
+                             src_data_rank=None)
+
+
+def _match_template(template, tree, shardings=None):
     from repro_torch.train.optimizer import _quantise_moment
 
     def conv(second):
-        def f(t, x):
+        def f(t, x, s):
             if isinstance(t, QuantisedTensor):
-                return _quantise_moment(
-                    x.to(device=t.codes.device, dtype=torch.float32), True,
-                    second)
+                if s is not None:
+                    x = _place(x.to(torch.float32), s)
+                else:
+                    x = x.to(device=t.codes.device, dtype=torch.float32)
+                return _quantise_moment(x, True, second)
+            if s is not None:
+                return _place(x.to(t.dtype), s)
             return x.to(device=t.device, dtype=t.dtype)
         return f
 
-    def zip_map(fn, t, x):
-        if isinstance(t, dict):
-            return {k: zip_map(fn, t[k], x[k]) for k in t}
-        return fn(t, x)
+    def sub(key):
+        return None if shardings is None else shardings[key]
 
     if _is_opt_state(template):
-        return {"m": zip_map(conv(False), template["m"], tree["m"]),
-                "v": zip_map(conv(True), template["v"], tree["v"]),
-                "step": tree["step"].to(device=template["step"].device,
-                                        dtype=torch.int32)}
+        step = tree["step"].to(dtype=torch.int32)
+        return {"m": _zip_map(conv(False), template["m"], tree["m"],
+                              sub("m")),
+                "v": _zip_map(conv(True), template["v"], tree["v"],
+                              sub("v")),
+                "step": (_place(step, sub("step")) if sub("step") is not None
+                         else step.to(device=template["step"].device))}
     if isinstance(template, dict):
-        return {k: _match_template(template[k], tree[k]) for k in template}
-    return conv(False)(template, tree)
+        return {k: _match_template(template[k], tree[k], sub(k))
+                for k in template}
+    return conv(False)(template, tree, shardings)
 
 
 # ------------------------------------------------------------- quantised params

@@ -7,7 +7,8 @@ the same moment codes and scales from the same gradients.
 States are nested dicts; ``adam_update`` returns new trees and leaves its
 inputs untouched, so a failed step can be re-executed. The quantised path
 dequantises → updates → requantises per step; block scales absorb the moment
-magnitudes.
+magnitudes. Parameters that are DTensors get DTensor moments, quantised
+shard by shard, bit for bit what the plain update gives.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from repro_torch.core.element import ElementFormat
 from repro_torch.core.plan import flat_with_paths, map_with_paths
 from repro_torch.core.registry import parse_format
 from repro_torch.core.scaling import Scaling
-from repro_torch.core.tensor_format import TensorFormat
+from repro_torch.core.tensor_format import QuantisedTensor, TensorFormat
 
 # Moment block size. Blocks run along the LAST dim with leading dims kept
 # ("block_rows"), as in the reference (its blocked layout shards like the
@@ -59,17 +60,82 @@ class AdamConfig:
 def _quantise_moment(x: torch.Tensor, do: bool, second: bool = False):
     if not do:
         return x
+    fmt = V_FORMAT if second else M_FORMAT
     if second:
-        return V_FORMAT.quantise(torch.sqrt(torch.clamp(x, min=0.0)))
-    return M_FORMAT.quantise(x)
+        x = torch.sqrt(torch.clamp(x, min=0.0))
+    if _is_dtensor(x):
+        return _quantise_shards(fmt, x)
+    return fmt.quantise(x)
 
 
 def _dequantise_moment(q, do: bool, second: bool = False):
     if not do:
         return q
-    if second:
-        return torch.square(V_FORMAT.dequantise(q))
-    return M_FORMAT.dequantise(q)
+    fmt = V_FORMAT if second else M_FORMAT
+    x = (_dequantise_shards(fmt, q) if _is_dtensor(q.codes)
+         else fmt.dequantise(q))
+    return torch.square(x) if second else x
+
+
+# ------------------------------------------------- moments that are DTensors
+#
+# A moment's blocks run along the last dim and never cross a row, so each
+# rank quantises its own shard: the codes and scales of a block depend on
+# that block alone. Their layout is the one the dry run's ``_opt_state``
+# gives them (the reference's ``_opt_shardings``): the moment's placements
+# on the leading dims, and on the block-count dim where whole blocks fall
+# on each rank; a last dim whose shards would cut a block is gathered first.
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _block_placements(x) -> tuple:
+    """``x``'s placements with Partial reduced and a last-dim split that
+    cuts a block replaced by Replicate."""
+    from torch.distributed.tensor import Replicate
+    nd = x.ndim
+    mesh = x.device_mesh
+    last = [i for i, p in enumerate(x.placements)
+            if p.is_shard() and p.dim % nd == nd - 1]
+    ranks = math.prod(mesh.size(i) for i in last)
+    cut = (x.shape[-1] // _MB) % ranks != 0
+    return tuple(Replicate() if p.is_partial() or (cut and i in last) else p
+                 for i, p in enumerate(x.placements))
+
+
+def _wrap_local(local, like, shape):
+    """A DTensor of global ``shape`` made of each rank's ``local`` piece,
+    over ``like``'s mesh and placements."""
+    from torch.distributed.tensor import DTensor
+    shape = torch.Size(shape)
+    stride = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        stride[d] = stride[d + 1] * shape[d + 1]
+    return DTensor.from_local(local, like.device_mesh, like.placements,
+                              run_check=False, shape=shape,
+                              stride=tuple(stride))
+
+
+def _quantise_shards(fmt: TensorFormat, x):
+    placements = _block_placements(x)
+    if placements != tuple(x.placements):
+        x = x.redistribute(x.device_mesh, placements)
+    q = fmt.quantise(x.to_local())
+    lead = tuple(x.shape[:-1]) + (x.shape[-1] // _MB,)
+    return QuantisedTensor(_wrap_local(q.codes, x, lead + (_MB,)),
+                           _wrap_local(q.scales, x, lead + (1,)),
+                           None, None, tuple(x.shape), q.dtype)
+
+
+def _dequantise_shards(fmt: TensorFormat, q: QuantisedTensor):
+    local = q.codes.to_local()
+    n = local.shape[-2] * local.shape[-1]
+    y = fmt.dequantise(QuantisedTensor(
+        local, q.scales.to_local(), None, None,
+        tuple(local.shape[:-2]) + (n,), q.dtype))
+    return _wrap_local(y, q.codes, q.shape)
 
 
 def _leaf_quantised(cfg: AdamConfig, x) -> bool:
@@ -82,8 +148,9 @@ def adam_init(params, cfg: AdamConfig):
     """Zero moments beside ``params`` (on each leaf's device), and step 0."""
     def zero_like(second):
         def f(_, x):
-            z = torch.zeros(tuple(x.shape), dtype=torch.float32,
-                            device=x.device)
+            z = (torch.zeros_like(x, dtype=torch.float32) if _is_dtensor(x)
+                 else torch.zeros(tuple(x.shape), dtype=torch.float32,
+                                  device=x.device))
             return _quantise_moment(z, _leaf_quantised(cfg, x), second)
         return f
 

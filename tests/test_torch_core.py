@@ -144,6 +144,18 @@ class TestFormats:
             np.asarray(jf.fake_quant(jnp.asarray(x))))
         assert f.bits_per_param(x.shape) == jf.bits_per_param(x.shape)
 
+    @pytest.mark.parametrize("spec", ["babsmax64:n4", "trms:n4"])
+    def test_fake_quant_jit_matches_the_reference(self, spec):
+        """The reference's jitted convenience wrapper and the port's plain
+        one give the same values."""
+        from repro.core.tensor_format import fake_quant_jit as jfqj
+        from repro_torch.core.tensor_format import fake_quant_jit
+        x = (np.random.default_rng(5).standard_normal((32, 128)) * 0.1
+             ).astype(np.float32)
+        got = fake_quant_jit(parse_format(spec), torch.from_numpy(x))
+        want = jfqj(jparse_format(spec), jnp.asarray(x))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
     def test_bf16_round_away_is_bitwise(self):
         from repro.core.scaling import _bf16_round_away as jround
         from repro_torch.core.scaling import _bf16_round_away

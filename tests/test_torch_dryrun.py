@@ -5,6 +5,7 @@ through the expert-parallel block — with the record's keys, collective
 bytes where a dim is sharded, FLOPs against ``model_flops``, and the world
 torn down after every cell; the activation setters on plain tensors; the
 recorder's FLOP and ring-model accounting; ``run_cell``'s skip record."""
+import functools
 import json
 
 import numpy as np
@@ -15,8 +16,11 @@ import torch.distributed as dist
 from repro.launch import analysis as jan
 
 from repro_torch import configs
+from repro_torch.core.plan import flat_with_paths
+from repro_torch.core.tensor_format import QuantisedTensor
 from repro_torch.launch import analysis, dryrun, mesh
 from repro_torch.models import layers
+from repro_torch.train import optimizer
 
 KEYS = ("arch", "shape", "kind", "mesh", "n_devices", "n_params", "status",
         "seconds", "analytic_param_bytes_per_device", "memory",
@@ -37,15 +41,32 @@ def world_mesh(n):
     return mesh.make_host_mesh(model=2, device_type="cpu")
 
 
+# below every smoke leaf's size, so that the train cell's leaves whose
+# last dim tiles by 128 take 8-bit moments (the default, 65536, quantises
+# none of them at smoke size)
+MIN_QUANT_NUMEL = 1024
+
+
 @pytest.fixture(scope="module")
 def records():
     out = {}
-    for name, (arch, kind, n) in CELLS.items():
-        cfg = configs.get_config(arch, "smoke")
-        shape = configs.smoke_shape(kind, seq=16, batch=4)
-        with dryrun.fake_world(n):
-            out[name] = dryrun.run_on_mesh(cfg, shape, world_mesh(n))
-        out[name]["_initialised_after"] = dist.is_initialized()
+    with pytest.MonkeyPatch.context() as mp:
+        acfg = optimizer.AdamConfig
+        mp.setattr(optimizer, "AdamConfig", functools.partial(
+            acfg, min_quant_numel=MIN_QUANT_NUMEL))
+        opt_state = dryrun._opt_state
+
+        def kept(*a, **kw):
+            acfg, opt = opt_state(*a, **kw)
+            out["_opt"] = opt
+            return acfg, opt
+        mp.setattr(dryrun, "_opt_state", kept)
+        for name, (arch, kind, n) in CELLS.items():
+            cfg = configs.get_config(arch, "smoke")
+            shape = configs.smoke_shape(kind, seq=16, batch=4)
+            with dryrun.fake_world(n):
+                out[name] = dryrun.run_on_mesh(cfg, shape, world_mesh(n))
+            out[name]["_initialised_after"] = dist.is_initialized()
     return out
 
 
@@ -71,6 +92,33 @@ def test_cell_runs_and_records(records, name):
     if kind == "train":
         assert rec["adam_update"] == "ok"
     json.dumps(rec)
+
+
+def test_train_cell_updates_8bit_moments_on_dtensors(records):
+    """The train cell's Adam update ran with quantised moments laid out on
+    the mesh: each rank quantises its own shard (``searchsorted`` has no
+    DTensor strategy), and the cell records ``ok``."""
+    from torch.distributed.tensor import DTensor
+    quantised = [x for _, x in flat_with_paths(records["_opt"]["m"])
+                 if isinstance(x, QuantisedTensor)]
+    assert quantised and all(isinstance(q.codes, DTensor)
+                             for q in quantised)
+    assert records["dense_train_4"]["adam_update"] == "ok"
+
+
+def test_a_refused_update_fails_the_cell(monkeypatch):
+    """A refused update is the cell's error with its traceback, not an
+    ``ok`` cell carrying a string."""
+    def refuse(*a, **kw):
+        raise NotImplementedError("no sharding strategy, on purpose")
+    monkeypatch.setattr(optimizer, "adam_update", refuse)
+    cfg = configs.get_config("deepseek-7b", "smoke").replace(n_layers=1)
+    with dryrun.fake_world(4):
+        rec = dryrun.run_on_mesh(cfg, configs.smoke_shape("train", 16, 4),
+                                 world_mesh(4))
+    assert rec["status"] == "error" and "on purpose" in rec["error"]
+    assert "adam_update" in rec["traceback"]
+    assert not dist.is_initialized()
 
 
 def test_moe_cell_runs_the_expert_parallel_block(records):

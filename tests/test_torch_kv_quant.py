@@ -372,6 +372,25 @@ def test_block_dequant_bitwise(fmt):
     np.testing.assert_array_equal(bits_of(got.numpy()), bits_of(want))
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("fmt", FMTS)
+def test_ops_block_dequant_matches_the_reference(fmt, dtype):
+    """``ops.block_dequant`` (the reference's public entry, its default
+    bf16 output included) against ``repro.kernels.ops.block_dequant``."""
+    cb = tcache.kv_codebook(fmt).numpy()
+    x = hard_rows(8, 128, cb, seed=5)
+    codes, scales = block_quant_ref(t(x), t(cb), 64)
+    kw = {} if dtype == "bfloat16" else {"dtype": torch.float32}
+    jkw = {} if dtype == "bfloat16" else {"dtype": jnp.float32}
+    got = ops.block_dequant(codes, scales, t(cb), 64, **kw)
+    want = jops.block_dequant(jnp.asarray(codes.numpy()),
+                              jnp.asarray(scales.numpy()), jnp.asarray(cb),
+                              64, **jkw)
+    assert str(got.dtype) == f"torch.{dtype}"
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
+
+
 # ---------------------------------------------------------------------------
 # dequant_matmul_t
 

@@ -475,8 +475,23 @@ def test_bf16_leaves_round_trip_without_bf16_arrays(tmp_path):
     back, _ = ckpt.restore_checkpoint(path, template={"p": {"x": x}})
     assert back["p"]["x"].dtype == torch.bfloat16
     assert torch.equal(back["p"]["x"], x)
-    with pytest.raises(ValueError, match="shardings"):
-        ckpt.restore_checkpoint(path, shardings={})
+    # placed onto a mesh (an in-process gloo world of one rank): the
+    # template's dtype, then the sharding's layout, equal once gathered
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Shard
+    from repro_torch.launch.mesh import NamedSharding
+    torch.distributed.init_process_group(
+        "gloo", store=torch.distributed.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("model",))
+        placed, _ = ckpt.restore_checkpoint(
+            path, template={"p": {"x": x}},
+            shardings={"p": {"x": NamedSharding(mesh, (Shard(0),))}})
+        got = placed["p"]["x"]
+        assert got.placements == (Shard(0),) and got.dtype == torch.bfloat16
+        assert torch.equal(got.full_tensor(), x)
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def test_checkpoint_atomicity(tmp_path):
