@@ -63,6 +63,17 @@ class QuantisedTensor:
     shape: tuple = ()
     dtype: str = "float32"
 
+    @property
+    def nbytes_packed(self) -> int:
+        """Bytes of codes and scales, plus the outliers' indices and
+        values where there are any."""
+        n = (self.codes.numel() * self.codes.element_size()
+             + self.scales.numel() * self.scales.element_size())
+        if self.sparse_idx is not None:
+            n += (self.sparse_idx.numel() * self.sparse_idx.element_size()
+                  + self.sparse_val.numel() * self.sparse_val.element_size())
+        return n
+
 
 @dataclass
 class PackedTensor:
@@ -101,6 +112,12 @@ class PackedTensor:
     def k_dim(self) -> int:
         """Logical contraction length (codes rows × codes per byte)."""
         return self.codes.shape[-2] * (2 if self.bits == 4 else 1)
+
+    @property
+    def nbytes_packed(self) -> int:
+        """Bytes of codes and scales (the codebook is not counted)."""
+        return int(self.codes.numel() * self.codes.element_size()
+                   + self.scales.numel() * self.scales.element_size())
 
     def layer(self, i: int) -> "PackedTensor":
         """The i-th slice along the leading (layer) dim, as views of the

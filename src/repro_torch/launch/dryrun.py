@@ -14,11 +14,13 @@ return at once), the mesh is the production (16, 16) ("data", "model") or
 state and batch are DTensors over ``meta`` tensors placed by
 ``launch.mesh.spec_for``. The step runs eagerly under
 ``implicit_replication()`` (the model's own position and mask tensors are
-plain), ``CommDebugMode`` (collective counts), ``FlopCounterMode`` (FLOPs
-over the global shapes) and ``analysis.DeviceRecorder`` (rank 0's
-collectives with their bytes and group sizes, and the FLOPs of its local
-shards). A cell that DTensor refuses is recorded as ``error`` with its
-traceback, as the reference records its compile failures.
+plain), ``CommDebugMode`` (collective counts) and
+``analysis.DeviceRecorder`` (rank 0's collectives with their bytes and
+group sizes, and the FLOPs of its local shards); ``FlopCounterMode`` then
+counts the whole step on plain meta tensors (``flops_global``, the
+reference's one-device count). A cell that DTensor refuses is recorded as
+``error`` with its traceback, as the reference records its compile
+failures.
 """
 from __future__ import annotations
 
@@ -109,15 +111,20 @@ def build_cell(arch_id: str, shape_name: str, mesh, quantised_opt=True):
                        configs.SHAPES[shape_name], mesh, quantised_opt)
 
 
-def _build_cell(cfg, shape: configs.Shape, mesh, quantised_opt=True):
+def _build_cell(cfg, shape: configs.Shape, mesh, quantised_opt=True,
+                plain=False):
+    """``build_cell``'s body; ``plain``: the same step on plain meta tensors
+    (one device), for the whole step's FLOPs."""
     if shape.kind in ("prefill", "decode"):
         # serving posture: bf16 weights
         cfg = cfg.replace(param_dtype="bfloat16")
     fam = mapi.get_family(cfg.family)
     rules = rules_for(shape, cfg, mesh)
+    lay = ((lambda tree, _mesh, _rules: mapi.specs_to_sds(tree)) if plain
+           else place)
     pspecs = fam.param_specs(cfg)
-    params = place(pspecs, mesh, rules)
-    batch = place(configs.input_specs(cfg, shape), mesh, rules)
+    params = lay(pspecs, mesh, rules)
+    batch = lay(configs.input_specs(cfg, shape), mesh, rules)
     meta = {
         "arch": cfg.name, "shape": shape.name, "kind": shape.kind,
         "mesh": mesh_shape(mesh), "n_devices": mesh.size(),
@@ -129,7 +136,10 @@ def _build_cell(cfg, shape: configs.Shape, mesh, quantised_opt=True):
     if shape.kind == "train":
         from repro_torch.train.loop import ce_loss, clip_by_global_norm
         from repro_torch.train.optimizer import adam_update
-        acfg, opt = _opt_state(params, quantised_opt)
+        # the plain step stops at the gradients: clip and Adam multiply
+        # no matrices, so they add no FLOPs
+        acfg, opt = (None, None) if plain else _opt_state(params,
+                                                          quantised_opt)
 
         def fn(params, opt, batch):
             names = [n for n, _ in _flat_with_paths(params)]
@@ -139,6 +149,8 @@ def _build_cell(cfg, shape: configs.Shape, mesh, quantised_opt=True):
             loss = ce_loss(cfg, fam.apply(p, batch, cfg), batch)
             grads = torch.autograd.grad(loss, [leaves[n] for n in names])
             grads = dict(zip(names, grads))
+            if opt is None:
+                return {}
             with torch.no_grad():
                 grads, _ = clip_by_global_norm(
                     map_with_paths(lambda n, _: grads[n], params), 1.0)
@@ -154,8 +166,8 @@ def _build_cell(cfg, shape: configs.Shape, mesh, quantised_opt=True):
             return {}
         return fn, (params, batch), meta
 
-    state = place(fam.decode_state_specs(cfg, shape.batch, shape.seq), mesh,
-                  rules)
+    state = lay(fam.decode_state_specs(cfg, shape.batch, shape.seq), mesh,
+                rules)
 
     def fn(params, state, batch):
         with torch.no_grad():
@@ -196,10 +208,19 @@ def run_on_mesh(cfg, shape: configs.Shape, mesh, quantised_opt=True) -> dict:
             set_ep_mesh(mesh, axes, "model")
         fn, args, meta = _build_cell(cfg, shape, mesh, quantised_opt)
         rec = analysis.DeviceRecorder()
-        with implicit_replication(), CommDebugMode() as comm, rec, \
-                FlopCounterMode(display=False) as flops:
+        with implicit_replication(), CommDebugMode() as comm, rec:
             phases = fn(*args)
         counts = {str(k): v for k, v in comm.get_comm_counts().items()}
+        # the whole step, for flops_global: plain meta tensors, no layout
+        # (each rank computes its own heads and blocks, so FlopCounterMode
+        # over the DTensor run would count local shapes there)
+        set_activation_sharding(None)
+        set_ep_mesh(None, ())
+        set_head_axis(None)
+        whole, plain_args, _ = _build_cell(cfg, shape, mesh, quantised_opt,
+                                           plain=True)
+        with FlopCounterMode(display=False) as flops:
+            whole(*plain_args)
         return {
             **meta,
             "status": "ok",
@@ -216,9 +237,8 @@ def run_on_mesh(cfg, shape: configs.Shape, mesh, quantised_opt=True) -> dict:
             "conventions": (
                 "per device = rank 0 of the fake world: its local shards' "
                 "FLOPs and its collectives under the ring model; "
-                "flops_global = FlopCounterMode over the global shapes "
-                "(per-rank code, the EP block, counts its local shapes "
-                "there); "
+                "flops_global = FlopCounterMode over the same step on "
+                "plain meta tensors (one device, the local MoE path); "
                 "model_flops_total = the analytic count for the whole "
                 "step"),
         }

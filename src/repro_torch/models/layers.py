@@ -87,11 +87,13 @@ def linear(x, w, spec: str):
 
 def _linear_dtensor(x, w, spec: str):
     """``linear`` of DTensors (the dry run): one matmul of x's flattened
-    contraction dims against the weight flattened to 2-D, whose output is
-    split back into the weight's output dims by :func:`split_dim`. The
-    einsum itself would flatten the output and shard it over a mesh axis
-    wider than its leading output dim (4 heads on 16), and DTensor refuses
-    to split that back."""
+    contraction dims against the weight flattened to 2-D
+    (:func:`_matmul_laid_out`), whose output is split back into the
+    weight's output dims by :func:`split_dim`. The einsum itself would
+    flatten the output and shard it over a mesh axis wider than its leading
+    output dim (4 heads on 16), and DTensor refuses to split that back.
+    Heads split unevenly over x's contraction (:func:`_row_parallel`) are
+    contracted by each rank against their own rows of the weight."""
     ins, out = spec.replace(" ", "").split("->")
     xs, ws = ins.split(",")
     contract = "".join(c for c in ws if c in xs and c not in out)
@@ -101,14 +103,85 @@ def _linear_dtensor(x, w, spec: str):
         raise ValueError(f"spec {spec!r}: x must end with the contraction "
                          "and the output be x's leading dims and w's rest")
     out_shape = tuple(w.shape[ws.index(c)] for c in wout)
+    if _row_parallel(x, x.ndim - n_k, n_k):
+        own = own_heads(x, x.shape[-n_k], x.ndim - n_k)
+        y = torch.einsum(spec, to_own(x, own, 0, x.ndim - n_k),
+                         to_own(w, own, None, ws.index(contract[0])))
+        return from_own(y, own, (*x.shape[:-n_k], *out_shape), 0,
+                        partial=True)
     xf = _merge_dims(x, x.ndim - n_k, n_k)
     if _spec_orientation(spec) == "transposed":
         wf = _merge_dims(_merge_dims(w, n_o, n_k), 0, n_o)
-        y = torch.einsum("...k,nk->...n", xf, wf)
+        y = _matmul_laid_out(xf, wf, "...k,nk->...n", 1)
     else:
         wf = _merge_dims(_merge_dims(w, 0, n_k), 1, n_o)
-        y = torch.einsum("...k,kn->...n", xf, wf)
+        y = _matmul_laid_out(xf, wf, "...k,kn->...n", 0)
     return split_dim(y, y.ndim - 1, out_shape)
+
+
+def _matmul_laid_out(x, w, spec: str, kdim: int):
+    """``einsum(spec, x, w)`` of a DTensor x (..., K) and a 2-D weight
+    whose contraction dim is ``kdim``, laid out per mesh dim as the
+    reference's GSPMD layout: where x splits its batch, w is gathered
+    there (FSDP); where w splits its output dim, x is gathered there
+    (column-parallel); where either splits K, both split it and the
+    outputs are partial sums (row-parallel); where x splits another leading
+    dim (the sequence), w is gathered; where neither splits, the outputs
+    are. Each rank multiplies its own blocks. DTensor's own choice, by its
+    cost model, replicated whole products at some shapes (llama3-405b's
+    MLP down projection at 32k)."""
+    if not _is_dtensor(w):
+        return torch.einsum(spec, x, w)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh, xk, nd = x.device_mesh, x.ndim - 1, 1 - kdim
+    x_to, w_to, y_pl = [], [], []
+    for i, (xq, wq) in enumerate(zip(x.placements, w.placements)):
+        x_lead = isinstance(xq, Shard) and xq.dim != xk
+        if xq == Shard(0):
+            x_to.append(xq), w_to.append(Replicate()), y_pl.append(xq)
+        elif isinstance(wq, Shard) and wq.dim == nd:
+            x_to.append(Replicate()), w_to.append(wq)
+            y_pl.append(Shard(xk))
+        elif xq == Shard(xk) or wq == Shard(kdim) and not x_lead:
+            x_to.append(Shard(xk)), w_to.append(Shard(kdim))
+            y_pl.append(Partial())
+        elif x_lead:
+            x_to.append(xq), w_to.append(Replicate()), y_pl.append(xq)
+        elif w.shape[nd] % mesh.size(i) == 0:
+            # neither splits here: each rank takes a slice of the outputs
+            x_to.append(Replicate()), w_to.append(Shard(nd))
+            y_pl.append(Shard(xk))
+        else:
+            x_to.append(Replicate()), w_to.append(Replicate())
+            y_pl.append(Replicate())
+
+    def grads(to):   # a block used whole where the ranks' products differ
+        return [q if isinstance(q, Shard) else
+                Partial() if not isinstance(p, Replicate) else Replicate()
+                for q, p in zip(to, y_pl)]
+    xl = x.redistribute(mesh, x_to).to_local(grad_placements=grads(x_to))
+    wl = w.redistribute(mesh, w_to).to_local(grad_placements=grads(w_to))
+    shape = (*x.shape[:-1], w.shape[nd])
+    return DTensor.from_local(torch.einsum(spec, xl, wl), mesh, y_pl,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+def _row_parallel(x, d0: int, n: int) -> bool:
+    """Does ``x`` split its leading contraction dim ``d0`` unevenly (heads
+    that do not divide the head ranks) and no other of its ``n``? Then
+    ``linear`` contracts each rank's own heads against their rows of the
+    weight, and sums the ranks' partial outputs where they are next read:
+    merging the dims would gather them."""
+    if not _is_dtensor(x) or n == 1:
+        return False
+    from torch.distributed.tensor import Shard
+    pl = x.placements
+    on = [i for i, q in enumerate(pl)
+          if isinstance(q, Shard) and d0 <= q.dim < d0 + n]
+    return bool(on) and all(pl[i].dim == d0 for i in on) and \
+        x.shape[d0] % math.prod(x.device_mesh.size(i) for i in on) != 0
 
 
 def _merge_dims(t, d0: int, n: int):
@@ -156,6 +229,148 @@ def split_dim(t, dim: int, sizes):
                 Replicate() if i in on else q for i, q in enumerate(pl)])
         return _pin(t.reshape(*t.shape[:dim], *sizes, *t.shape[dim + 1:]))
     return t.reshape(*t.shape[:dim], *sizes, *t.shape[dim + 1:])
+
+
+# ---------------------------------------------------------------------------
+# Each rank on its own heads (the dry run)
+# ---------------------------------------------------------------------------
+
+class OwnHeads(NamedTuple):
+    """This rank's block of a layout whose dim 0 holds B batch rows and
+    another dim H heads: rows ``b0 .. b0+nb-1`` over the mesh dims
+    ``batch``, heads ``h0 .. h0+nh-1`` over the mesh dims ``heads``, as
+    ``torch.chunk`` splits them (⌈H ÷ m⌉ a rank or fewer, the reference's
+    padded head sharding)."""
+    mesh: object
+    batch: tuple
+    heads: tuple
+    B: int
+    H: int
+    b0: int
+    nb: int
+    h0: int
+    nh: int
+
+
+def own_heads(x, H: int, hdim: int) -> OwnHeads:
+    """The block of DTensor ``x`` this rank computes on when its dim
+    ``hdim`` holds H heads (of one or more elements each): batch rows as
+    ``x`` splits dim 0 or, where it does not, over the activations' batch
+    axes (``set_activation_sharding``); heads as it splits ``hdim`` or,
+    where it does not, over the head axis (``set_head_axis``)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, pl = x.device_mesh, x.placements
+    batch = tuple(i for i, q in enumerate(pl)
+                  if isinstance(q, Shard) and q.dim == 0)
+    heads = tuple(i for i, q in enumerate(pl)
+                  if isinstance(q, Shard) and q.dim == hdim)
+    names = mesh.mesh_dim_names or ()
+    if not batch and _ACT_BATCH_AXES:
+        batch = tuple(names.index(a) for a in _ACT_BATCH_AXES
+                      if a in names and names.index(a) not in heads)
+    if not heads and _HEAD_AXIS in names and \
+            names.index(_HEAD_AXIS) not in batch:
+        heads = (names.index(_HEAD_AXIS),)
+    B = x.shape[0]
+    place = [Shard(0) if i in batch else Shard(1) if i in heads
+             else Replicate() for i in range(mesh.ndim)]
+    shape, off = compute_local_shape_and_global_offset((B, H), mesh, place)
+    return OwnHeads(mesh, batch, heads, B, H, off[0], shape[0], off[1],
+                    shape[1])
+
+
+def to_own(t, own: OwnHeads, bdim=0, hdim=None, unit: int = 1):
+    """This rank's share of ``t``: rows ``b0 ..`` of dim ``bdim`` (None:
+    all) and, of dim ``hdim`` (None: all), the ``unit`` elements of each of
+    its heads. A DTensor is laid out once (already so, heads split over the
+    head ranks where they divide evenly, else gathered and cut here); its
+    gradient comes back as a partial sum over the ranks whose shares of it
+    differ. A plain tensor is cut where it holds the whole batch."""
+    if not _is_dtensor(t):
+        if bdim is not None and own.nb != own.B and t.shape[bdim] == own.B:
+            t = t.narrow(bdim, own.b0, own.nb)
+        if hdim is not None:
+            t = t.narrow(hdim, own.h0 * unit, own.nh * unit)
+        return t
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    m = math.prod(own.mesh.size(i) for i in own.heads)
+    split = hdim is not None and (
+        own.H % m == 0 or unit == 1 and all(t.placements[i] == Shard(hdim)
+                                            for i in own.heads))
+    place, grad = [], []
+    for i in range(own.mesh.ndim):
+        if i in own.batch and bdim is not None:
+            place.append(Shard(bdim))
+            grad.append(Shard(bdim))
+        elif i in own.heads and split:
+            place.append(Shard(hdim))
+            grad.append(Shard(hdim))
+        elif i in own.batch or i in own.heads:
+            place.append(Replicate())
+            grad.append(Partial())
+        else:
+            place.append(Replicate())
+            grad.append(Replicate())
+    local = t.redistribute(own.mesh, place).to_local(grad_placements=grad)
+    if hdim is not None and not split:
+        local = local.narrow(hdim, own.h0 * unit, own.nh * unit)
+    return local
+
+
+def from_own(local, own: OwnHeads, shape, bdim=0, hdim=None,
+             partial=False):
+    """A DTensor of global ``shape`` from this rank's ``local`` share:
+    batch rows on ``bdim``, heads on ``hdim`` (uneven allowed), or a
+    partial sum over the head ranks (``partial``)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    place = [Shard(bdim) if i in own.batch and bdim is not None else
+             Shard(hdim) if i in own.heads and hdim is not None else
+             Partial() if i in own.heads and partial else Replicate()
+             for i in range(own.mesh.ndim)]
+    return DTensor.from_local(local, own.mesh, place, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+def _heads_gather(q, K: int, kv=None) -> bool:
+    """Would DTensor gather ``q``'s heads to split them into (K, H ÷ K)?
+    True where the mesh dims splitting its heads do not divide K, and the
+    ``kv`` cache (if given) is not split over its positions: a cache
+    split so keeps the split over S."""
+    if not _is_dtensor(q):
+        return False
+    from torch.distributed.tensor import Shard
+    on = [i for i, p in enumerate(q.placements)
+          if isinstance(p, Shard) and p.dim == 2]
+    if K % math.prod(q.device_mesh.size(i) for i in on) == 0:
+        return False
+    return not _is_dtensor(kv) or not any(
+        isinstance(p, Shard) and p.dim == 1 for p in kv.placements)
+
+
+def _on_own_heads(fn, q, k, v, *batched):
+    """``fn(q, k, v, *batched)`` on this rank's own q heads (q (B, T, H,
+    hd) a DTensor, k, v (B, S, K, hd)): each rank's q heads, the K/V heads
+    they read (gathered over the head ranks, picked per q head, so ``fn``
+    runs with G = 1), and its rows of the ``batched`` tensors (a scalar or
+    None passes through); the output wrapped back with its heads split as
+    q's."""
+    H = q.shape[2]
+    G = H // k.shape[2]
+    own = own_heads(q, H, 2)
+    ql = to_own(q, own, 0, 2)
+    pick = torch.arange(own.h0, own.h0 + own.nh, device=ql.device) // G
+    kl, vl = (to_own(c, own, 0)[:, :, pick] for c in (k, v))
+    rest = [to_own(b, own, 0) if torch.is_tensor(b) and b.ndim else b
+            for b in batched]
+    if own.nh:
+        out = fn(ql, kl, vl, *rest)
+    else:   # no head here: the K/V stay in the graph, as on the other ranks
+        out = ql + 0 * (kl.sum() + vl.sum()).to(ql.dtype)
+    return from_own(out, own, q.shape, 0, 2)
 
 
 def expert_matmul(x, w, spec: str):
@@ -393,6 +608,8 @@ def attend(q, k_cache, v_cache, mask):
     to v's dtype)."""
     B, T, H, hd = q.shape
     K = k_cache.shape[2]
+    if _heads_gather(q, K, k_cache):
+        return _on_own_heads(attend, q, k_cache, v_cache, mask)
     qg = split_dim(q, 2, (K, H // K))
     s = torch.einsum("btkgh,bskh->btkgs", qg, k_cache.to(qg.dtype))
     s = (s.float() * hd ** -0.5).masked_fill(~mask, NEG_INF)
@@ -422,6 +639,12 @@ def decode_attention(q, k_cache, v_cache, q_position, *, window=0,
             bits=codebook_bits(codebook))
     B, _, H, hd = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
+    if _heads_gather(q, K, k_cache):
+        return _on_own_heads(
+            lambda q, k, v: decode_attention(
+                q, k, v, q_position, window=window,
+                kv_positions=kv_positions, ring=ring),
+            q, k_cache, v_cache)
     qg = split_dim(q, 2, (K, H // K))[:, 0]
     s = torch.einsum("bkgh,bskh->bkgs", qg, k_cache.to(qg.dtype))
     s = s.float() * hd ** -0.5
@@ -630,6 +853,13 @@ def flash_attention(q, k, v, q_positions, k_positions, *, causal: bool = True,
     which every query masks."""
     B, Tq, H, hd = q.shape
     Tk, K = k.shape[1], k.shape[2]
+    if _heads_gather(q, K):
+        return _on_own_heads(
+            lambda q, k, v, valid: flash_attention(
+                q, k, v, q_positions, k_positions,
+                causal=causal, window=window, chunk=chunk,
+                k_valid_len=valid),
+            q, k, v, k_valid_len)
     G = H // K
     qg = split_dim(q, 2, (K, G))
     scale = hd ** -0.5

@@ -18,13 +18,16 @@ returns new state tensors (a re-run step starts from the same state).
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .api import (ModelConfig, ModelFamily, ParamSpec, init_from_specs,
                   ragged_prologue, register_family, torch_dtype)
-from .layers import constrain_act, embed_lookup, linear, rms_norm
+from .layers import (_is_dtensor, constrain_act, embed_lookup, from_own,
+                     linear, own_heads, rms_norm, to_own)
 from .transformer import _layer
 from .whisper import _loop
 
@@ -94,8 +97,8 @@ def _group_norm(y, gain, eps):
     m = y.float().mean(dim=-1, keepdim=True).to(y.dtype)
     v = y.float().var(dim=-1, keepdim=True, correction=0).to(y.dtype)
     yn = (y - m) * torch.rsqrt(v + eps)
-    B, T = y.shape[:2]
-    return yn.reshape(B, T, -1) * gain.to(y.dtype)
+    B, T, H, hd = y.shape
+    return yn.reshape(B, T, H * hd) * gain.to(y.dtype)
 
 
 def wkv_scan(r, k, v, w, u, s0=None):
@@ -209,7 +212,6 @@ def time_mix(x, lp, cfg, last_x=None, s0=None, valid=None):
         vm = valid[..., None]
         k = torch.where(vm, k, 0.0).to(k.dtype)   # kv outer product -> 0
         w = torch.where(vm, w, 1.0)               # decay 1: S untouched
-    hsplit = lambda a: a.reshape(B, T, H, hd)
     ck = cfg.linear_chunk
     if s0 is None:
         use_chunked = bool(ck and T > ck and T % ck == 0)
@@ -220,15 +222,41 @@ def time_mix(x, lp, cfg, last_x=None, s0=None, valid=None):
         # cumulative log-decay (≥ -20 a step) never reaches the -80 floor
         chunk = next((c for c in (4, 3, 2) if T % c == 0), 1)
         use_chunked = T > 1 and chunk > 1
-    args = (hsplit(r), hsplit(k), hsplit(v), hsplit(w.to(dt)), lp["bonus_u"],
-            s0)
-    y, s_fin = (wkv_chunked(*args, chunk=chunk) if use_chunked
-                else wkv_scan(*args))
-    y = _group_norm(y, lp["ln_x"], cfg.norm_eps)
-    y = y * F.silu(g)
-    out = linear(y.to(dt), lp["wo"], "btd,de->bte")
+    wkv = functools.partial(wkv_chunked, chunk=chunk) if use_chunked \
+        else wkv_scan
+    mix = (r, k, v, w.to(dt), g)
+    if not _is_dtensor(r):
+        out, s_fin = _heads_out(*mix, lp["bonus_u"], lp["ln_x"], lp["wo"],
+                                s0, cfg.norm_eps, wkv, H)
+    else:
+        # each rank on its own heads, laid out once a layer (T whole), so
+        # the chunk loop slices local tensors; the ranks' partial outputs
+        # are summed where they are next read
+        own = own_heads(r, H, 2)
+        out, s_fin = _heads_out(
+            *(to_own(a, own, 0, 2, hd) for a in mix),
+            to_own(lp["bonus_u"], own, None, 0),
+            to_own(lp["ln_x"], own, None, 0, hd),
+            to_own(lp["wo"], own, None, 0, hd),
+            None if s0 is None else to_own(s0, own, 0, 1), cfg.norm_eps,
+            wkv, own.nh)
+        out = from_own(out, own, (B, T, D), 0, partial=True)
+        s_fin = from_own(s_fin, own, (B, H, hd, hd), 0, 1)
     new_last = x[:, -1] if valid is None else _last_valid(x, valid, last_x)
     return out, (new_last, s_fin)
+
+
+def _heads_out(r, k, v, w, g, u, gain, wo, s0, eps, wkv, H):
+    """The WKV of (B, T, H·hd) r, k, v, w over H heads, its per-head group
+    norm, the silu(g) gate and the output projection: (out (B, T, D), the
+    final state)."""
+    B, T = r.shape[:2]
+    dt = r.dtype
+    hsplit = lambda a: a.reshape(B, T, H, HEAD_DIM)
+    y, s_fin = wkv(hsplit(r), hsplit(k), hsplit(v), hsplit(w), u, s0)
+    y = _group_norm(y, gain, eps)
+    y = y * F.silu(g)
+    return linear(y.to(dt), wo, "btd,de->bte"), s_fin
 
 
 def channel_mix(x, lp, cfg, last_x=None, valid=None):

@@ -253,6 +253,39 @@ def _flat(tree, prefix=""):
         yield prefix, tree
 
 
+@pytest.mark.parametrize("spec,bits", [("babsmax64:n4", 4),
+                                       ("babsmax64:int8", 8)])
+def test_nbytes_packed_matches_the_reference(spec, bits):
+    """``PackedTensor.nbytes_packed`` of a paper-100m smoke leaf packed at 4
+    (nibbles) and 8 bits equals the reference's."""
+    cfg = jconfigs.get_config("paper-100m", "smoke")
+    np_params = numpy_params(configs.get_config("paper-100m", "smoke"))
+    jparams = jax.tree.map(jnp.asarray, np_params)
+    jtree = jbuild_plan(jparams, spec).pack(jparams,
+                                            jtransformer.pack_layouts(cfg))
+    params = params_from_numpy(np_params, "cpu")
+    tree = build_plan(params, spec).pack(
+        params, transformer.pack_layouts(configs.get_config("paper-100m",
+                                                            "smoke")))
+    got, want = tree["layers"]["wq"], jtree["layers"]["wq"]
+    assert isinstance(got, PackedTensor) and got.bits == bits == want.bits
+    assert got.nbytes_packed == want.nbytes_packed > 0
+
+
+def test_nbytes_packed_counts_sparse_outliers_as_the_reference():
+    """``QuantisedTensor.nbytes_packed`` with sparse outliers (indices and
+    values) equals the reference's, and exceeds the same leaf's without."""
+    x = (np.random.default_rng(11).standard_normal((64, 96)) * 0.1
+         ).astype(np.float32)
+    for spec in ("trms:n4:sp0.01", "trms:n4"):
+        got = parse_format(spec).quantise(torch.from_numpy(x))
+        want = jparse_format(spec).quantise(jnp.asarray(x))
+        assert (got.sparse_idx is not None) == spec.endswith("sp0.01")
+        assert got.nbytes_packed == want.nbytes_packed
+    assert parse_format("trms:n4:sp0.01").quantise(
+        torch.from_numpy(x)).nbytes_packed > got.nbytes_packed
+
+
 def test_deepseek_smoke_mlp_stays_dense(packed_pairs):
     """d_ff=160 does not tile by the 64 block: w_gate/w_up dequantise."""
     _, tree, _, _ = packed_pairs[("deepseek-7b", "smoke")]
