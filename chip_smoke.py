@@ -35,17 +35,29 @@ Phases, each printed as JSON lines:
    same ctypes route (the launch floor) and the host's time per call.
 3. serve paper-100m full: babsmax64:n4 packed, seeded weights, 4 slots x 4
    requests; launch counts, resident bytes, and card-vs-CPU logits/tokens.
-4. serve deepseek-7b full: the same at kv_len 256, weights initialised,
-   quantised and packed on the card; the card's logits of the prefill step
-   and the first decode step held to the CPU plain path at full depth.
+4. serve deepseek-7b full, then internlm2-20b full (48 layers, d 6144, 48
+   heads over 8 KV heads of 128, d_ff 16384, vocab 92544, untied; 10.6 GB
+   packed, 337 ``dequant_matmul`` launches a step, weight and KV bytes by
+   the reference's count): the same at kv_len 256, weights drawn and
+   packed on the card one leaf at a time, with setup seconds and peak
+   device bytes; the prefill step and the first decode step held to the
+   CPU plain path on a second engine at full width and 4 layers serving
+   the same requests (``DEEPSEEK_HOLD_LAYERS``, ``INTERNLM_HOLD_LAYERS``),
+   and the served engine's own prefill step and first decode step
+   replayed at full depth on the card's plain path (``plain_witness``: the
+   kernels routed to their plain versions), by the same rule.
 5. serve gemma3-1b full with a q8 KV cache (tied embeddings, 5:1 ring
    groups): 4 requests, then one 600-token prompt that wraps the local
    groups' 520-slot rings, held step by step to the same request served
    with full-length caches (no ring); launch counts of all four kernels,
-   resident weight and KV bytes, card-vs-CPU logits. Then the same 4
-   requests with a q4 cache, whose prefill step and first three decode
-   steps are held to the CPU plain path on the same q4 cache: the logits,
-   and the codes and scales of each step's new k and v.
+   resident weight and KV bytes, card-vs-CPU logits on a second engine of
+   6 layers (one 5:1 period: both cache groups) serving the same 4
+   requests, every step (``GEMMA_HOLD_LAYERS``), and the full-depth
+   witness of phase 4 on the 26-layer engine. Then the same 4
+   requests with a q4 cache; a second q4 engine of 6 layers serves them
+   too, and its prefill step and first three decode steps are held to the
+   CPU plain path on the same q4 cache: the logits, and the codes and
+   scales of each step's new k and v.
 6. allocation (the paper's measurement path) at gemma3-1b full, seeded
    random f32 weights, tokens from numpy: the diagonal Fisher by autograd
    on the card over 2 batches of B=2, T=1024 (remat full), the Eq. 5
@@ -56,7 +68,8 @@ Phases, each printed as JSON lines:
    torch.profiler) held position by position to the dense ``apply`` over
    the dequantised checkpoint, its KL within 5% of that one's, and one
    T=512 sequence held to the CPU plain path; the card's per-tensor Fisher
-   within 5% of the CPU's on one T=256 sequence with the same labels;
+   within 5% of the CPU's on one T=256 sequence with the same labels (on a
+   gemma3-1b of 6 layers at full width);
    ``launch.serve --kv-format auto`` under half the all-f32 cache bytes,
    serving 4 requests on the formats it chose; both matmul kernels timed
    at M = 2048 beside torch.matmul and the bound.
@@ -78,8 +91,10 @@ Phases, each printed as JSON lines:
    its fixed-length counterpart; one layer's wq grid codes through the
    Huffman codec and back. The trained paper-100m parameters also go
    through the entropy-coded checkpoint (``train.compressed_ckpt``: bytes
-   beside f32 and packed, bits per parameter, the host codec's seconds),
-   and the loaded tree is served packed, held to the CPU plain path.
+   beside f32 and packed, bits per parameter, the host codec's seconds; the
+   embedding, unembedding and first 4 layers, ``CODEC_LAYERS``), and the
+   loaded tree is served packed at that depth, held to the CPU plain
+   path.
 8. frontend (the serving front end) at gemma3-1b full, babsmax64:n4
    packed, q8 cache, kv_len 1024, 4 slots: a seeded 32-request workload
    (``serve.traffic``, a 128-token shared prefix on 60% of the requests)
@@ -107,7 +122,7 @@ Phases, each printed as JSON lines:
    holds ``dequant_matmul`` with the lead dim at qwen2-moe's (E = 60) and
    llama4-scout's (E = 16) expert shapes, M = 4, beside one ``torch.bmm``
    on the dequantised bf16 stack, and at qwen2-moe's 2-D projections. Each
-   run's CPU hold is made on a second card engine of 4 of the 24 layers at
+   run's CPU hold is made on a second card engine of 2 of the 24 layers at
    full width (``MOE_HOLD_LAYERS``), served the same requests.
 10. whisper (the encoder-decoder family) at whisper-large-v3 full (32
    encoder and 32 decoder layers, d 1280, 20 heads of 64, vocab 51866,
@@ -131,13 +146,17 @@ Phases, each printed as JSON lines:
    ``dequant_matmul_t`` at (51866, 1280), ``block_quant`` at 20 heads of
    64 and ``decode_attention_quant`` at H = K = 20, hd 64, and at
    internvl2-26b's H = 48, K = 8, hd 128.
-11. internvl (the VLM family) at internvl2-26b full width (d 6144, 48 heads
-   over 8 KV heads of 128, d_ff 16384, vocab 92553) and 2 of its 48 layers:
+11. internvl (the VLM family) at internvl2-26b full (48 layers, d 6144, 48
+   heads over 8 KV heads of 128, d_ff 16384, vocab 92553; 13.04 GB):
    packed with the embedding in byte codes and the unembed dense, served
-   with a q8 cache (14 ``dequant_matmul``, 2 ``block_quant_kv`` and 2
+   with a q8 cache (336 ``dequant_matmul``, 48 ``block_quant_kv`` and 48
    ``decode_attention_quant`` launches a step), and its ``apply`` over 256
-   seeded patch tokens of width 3200 and a 64-token text held to the CPU
-   plain path at the same depth.
+   seeded patch tokens of width 3200 and a 64-token text (336
+   ``dequant_matmul`` launches at M = 320); both held to the CPU plain path
+   on a second engine at full width and 2 layers, and the served run to
+   the full-depth witness of phase 4. The kernel phase holds
+   ``dequant_matmul`` at the internlm2/internvl projections for M = 4, 32
+   and 320.
 12. rwkv6 (the attention-free recurrent family) at rwkv6-1.6b full (24
    layers, d 2048, 32 heads of 64, d_ff 7168, vocab 65536, untied),
    babsmax64:n4 packed, seeded weights drawn and packed one leaf at a time
@@ -178,7 +197,18 @@ Phases, each printed as JSON lines:
    codes, scales), and that state saved and restored with
    ``restore_checkpoint(shardings=)`` onto another layout, bit for bit once
    gathered.
-15. the kernels summary line, then ``{"ok": true, "device": ...}``.
+15. examples: ``examples/quickstart_torch.py``, ``format_design_torch.py``
+   and ``train_quantise_serve_torch.py`` through their ``main(["--device",
+   "cuda"])``, held to the reference's numbers (pinned at full precision
+   below): bits/param within 1e-9 and R within 1e-3 relative, ν, the exact
+   packed round trip and the codebook; the §4 pipeline at its defaults with
+   the paper's two claims (allocated KL below flat, KL after QAT below the
+   int3 direct cast), its served bits/param, 31 ``dequant_matmul``
+   launches a step of its babsmax128:t4 engine (a Student-t codebook,
+   128-wide blocks, held against the plain version in the kernel phase at
+   paper-100m small's shapes) and its served steps held to the CPU plain
+   path.
+16. the kernels summary line, then ``{"ok": true, "device": ...}``.
 
 Every count of kernel launches is set to 0 just before a serve run and read
 just after it. Each profile phase also holds every ``decode_attention_quant``
@@ -191,6 +221,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import importlib
+import importlib.util
 import io
 import json
 import math
@@ -284,7 +315,7 @@ LAUNCHES_PER_STEP = {
 }
 MOE_LEAD_LAUNCHES = 72            # of them with the expert lead dim E = 60
 # each run's CPU hold: a second engine of this many layers at full width
-MOE_HOLD_LAYERS = 4
+MOE_HOLD_LAYERS = 2
 LAUNCHES_PER_STEP[MOE_ARCH + " hold"] = {
     "dequant_matmul": 10 * MOE_HOLD_LAYERS + 1}
 LAUNCHES_PER_STEP[MOE_ARCH + " q8 hold"] = {
@@ -309,10 +340,58 @@ LAUNCHES_PER_STEP[WHISPER_ARCH + " q8"] = {
     "dequant_matmul": 256, "dequant_matmul_t": 1, "block_quant": 32,
     "decode_attention_quant": 32}
 INTERNVL_ARCH = "internvl2-26b"
-INTERNVL_LAYERS = 2               # of 48: full width, cut depth (PERF.md §4)
+INTERNLM_ARCH = "internlm2-20b"
+# internlm2-20b and internvl2-26b's backbone: (K, N) of each projection with
+# launches per decode step at 48 layers (internvl's unembed stays dense: its
+# vocab 92553 is odd); internvl's apply runs the layers' four at M = 320
+INTERNLM_PROJECTIONS = [((6144, 6144), 96, "wq+wo"),
+                        ((6144, 1024), 96, "wk+wv"),
+                        ((6144, 16384), 96, "w_gate+w_up"),
+                        ((16384, 6144), 48, "w_down"),
+                        ((6144, 92544), 1, "unembed (internlm2-20b)")]
+INTERNVL_APPLY_M = 256 + 64       # patch tokens + text tokens
+# both 48-layer models are served whole; their CPU holds run on a second
+# engine at full width and this many layers (a full-depth CPU replay of a
+# 20B model does not fit the script's time)
+INTERNVL_LAYERS = 2
+INTERNLM_HOLD_LAYERS = 4
+LAUNCHES_PER_STEP[INTERNLM_ARCH] = {"dequant_matmul": 7 * 48 + 1}
+LAUNCHES_PER_STEP[INTERNLM_ARCH + " hold"] = {
+    "dequant_matmul": 7 * INTERNLM_HOLD_LAYERS + 1}
 LAUNCHES_PER_STEP[INTERNVL_ARCH + " q8"] = {
+    "dequant_matmul": 7 * 48, "block_quant": 48,
+    "decode_attention_quant": 48}
+LAUNCHES_PER_STEP[INTERNVL_ARCH + " hold"] = {
     "dequant_matmul": 7 * INTERNVL_LAYERS, "block_quant": INTERNVL_LAYERS,
     "decode_attention_quant": INTERNVL_LAYERS}
+# CPU holds cut in depth to make room in the script's time: deepseek-7b's
+# (30 layers, ~50 s of CPU) and gemma3-1b q8's (26 layers, every step, ~80
+# s) run on a second engine of this many layers at full width; gemma3's 6
+# are one period of its 5:1 local:global pattern, so both cache groups are
+# held
+DEEPSEEK_HOLD_LAYERS = 4
+GEMMA_HOLD_LAYERS = 6
+LAUNCHES_PER_STEP["deepseek-7b hold"] = {
+    "dequant_matmul": 7 * DEEPSEEK_HOLD_LAYERS + 1}
+LAUNCHES_PER_STEP["gemma3-1b hold"] = {
+    "dequant_matmul": 7 * GEMMA_HOLD_LAYERS, "dequant_matmul_t": 1,
+    "block_quant": GEMMA_HOLD_LAYERS,
+    "decode_attention_quant": GEMMA_HOLD_LAYERS}
+# the entropy-coded checkpoint runs on the trained paper-100m's embedding,
+# unembedding and first CODEC_LAYERS of its 12 layers (the host codec took
+# ~95 s over all 12), served at that depth
+CODEC_LAYERS = 4
+LAUNCHES_PER_STEP["paper-100m codec"] = {
+    "dequant_matmul": 7 * CODEC_LAYERS + 1}
+# the train_quantise_serve example serves paper-100m small (6 layers, d 256,
+# d_ff 704, vocab 2048, untied) packed babsmax128:t4: w_gate and w_up do not
+# pack (704 is no multiple of the 128-wide block) and are served dense, so
+# a step launches wq, wk, wv, wo, w_down a layer and the unembed
+EXAMPLE_SPEC = "babsmax128:t4"
+EXAMPLE_PROJECTIONS = [((256, 256), 12, "wq+wo"), ((256, 128), 12, "wk+wv"),
+                       ((704, 256), 6, "w_down"), ((256, 2048), 1, "unembed")]
+EXAMPLE_UNPACKED = ["['layers']['w_gate']", "['layers']['w_up']"]
+LAUNCHES_PER_STEP["paper-100m-small"] = {"dequant_matmul": 5 * 6 + 1}
 # the device kernels of decode_attention.cu (profile phase: one a call)
 ATTN_DEVICE_KERNELS = ("attn_rows_kernel", "attn_mma_kernel")
 LAUNCH_RUN = 200                  # calls per launch-bound reading
@@ -334,9 +413,9 @@ WEIGHT_BYTES = {
     # its unembed and projector dense
     WHISPER_ARCH: dict(total=815_977_808, codes=767_197_440,
                        scales=47_949_840, codebooks=1_088, dense=829_440),
-    INTERNVL_ARCH: dict(total=3_505_222_336, codes=958_715_904,
-                        scales=42_149_568, codebooks=512,
-                        dense=2_504_356_352),
+    INTERNVL_ARCH + " hold": dict(total=3_505_222_336, codes=958_715_904,
+                                  scales=42_149_568, codebooks=512,
+                                  dense=2_504_356_352),
 }
 RWKV_ARCH = "rwkv6-1.6b"
 ZAMBA_ARCH = "zamba2-2.7b"
@@ -383,7 +462,18 @@ RECURRENT_LONG_PROMPT = 256       # the long-state check's prompt
 # x 32 layers x 1280 x 2 (k and v) in bf16, and pos
 WHISPER_KV_BYTES = {"dense": 173_015_040, "q8": 91_914_240}
 WHISPER_OTHER_BYTES = 983_040_000 + 16
-INTERNVL_KV_BYTES = 4_460_544                # q8, 2 layers
+INTERNVL_KV_BYTES = 107_053_056              # q8, 48 layers
+INTERNVL_HOLD_KV_BYTES = 4_460_544           # q8, 2 layers
+INTERNLM_KV_BYTES = 207_618_048              # dense, 48 layers
+# the reference's packing rules on abstract arrays (tests/
+# test_torch_internvl.py): internlm2-20b packs all nine tensors (vocab 92544
+# = 64 x 1446); internvl2-26b at 48 layers and at its hold's 2
+WEIGHT_BYTES[INTERNLM_ARCH] = dict(total=10_553_303_616,
+                                   codes=9_930_276_864, scales=620_642_304,
+                                   codebooks=576, dense=2_383_872)
+WEIGHT_BYTES[INTERNVL_ARCH] = dict(total=13_039_825_600,
+                                   codes=9_930_332_160, scales=602_875_584,
+                                   codebooks=512, dense=2_506_617_344)
 
 
 def emit(**kw):
@@ -481,9 +571,9 @@ def wrappers():
 # Phase 2: each kernel against its plain version
 
 
-def matmul_case(mods, dev, gen, cb, flush, K, N, M, bits, lead=None):
+def matmul_case(mods, dev, gen, cb, flush, K, N, M, bits, lead=None,
+                block=64):
     from repro_torch.kernels.dequant_matmul import ref
-    block = 64
     pre = () if lead is None else (lead,)
     x = torch.randn(pre + (M, K), generator=gen, device=dev).to(torch.bfloat16)
     codes = torch.randint(0, cb.numel(), pre + (K, N), generator=gen,
@@ -826,6 +916,8 @@ def kernel_phase(mods, dev, tc_ptxas, attn_ptxas):
     family_rows(mods, dev, gen, cb4, cb8, flush, tc_ptxas, attn_ptxas,
                 record)
     recurrent_rows(mods, dev, gen, cb4, flush, attn_ptxas, record)
+    internlm_rows(mods, dev, gen, cb4, flush, record)
+    example_rows(mods, dev, gen, flush, record)
     del flush
     torch.cuda.empty_cache()
     return rows
@@ -862,6 +954,39 @@ def family_rows(mods, dev, gen, cb4, cb8, flush, tc_ptxas, attn_ptxas,
             record("decode_attention_quant", attention_case(
                 mods, dev, gen, flush, T, S, False, 0, starts, fmt,
                 attn_ptxas, heads), model=model)
+
+
+def internlm_rows(mods, dev, gen, cb4, flush, record):
+    """``dequant_matmul`` at internlm2-20b's packed projections (internvl2-
+    26b's backbone) for M = 4 and 32 (decode, prefill), and the layers'
+    four at M = 320, internvl's ``apply`` over 256 patches and 64 text
+    tokens."""
+    for (K, N), per_step, names in INTERNLM_PROJECTIONS:
+        for M in (4, 32):
+            record("dequant_matmul", matmul_case(
+                mods, dev, gen, cb4, flush, K, N, M, 4), model=INTERNLM_ARCH,
+                weights=names, launches_per_step=per_step)
+        if "unembed" not in names:
+            record("dequant_matmul", matmul_case(
+                mods, dev, gen, cb4, flush, K, N, INTERNVL_APPLY_M, 4),
+                model=INTERNVL_ARCH, weights=names,
+                launches_per_apply=per_step)
+
+
+def example_rows(mods, dev, gen, flush, record):
+    """``dequant_matmul`` as ``examples/train_quantise_serve_torch.py``
+    serves it: paper-100m small's packed projections under babsmax128:t4
+    (a 16-point Student-t codebook, 128-wide scale blocks), M = 2 and 8 (2
+    slots: decode, and a prefill step of 4-token prompts)."""
+    from repro_torch.core.registry import parse_format
+    fmt = parse_format(EXAMPLE_SPEC)
+    cb = fmt.element.torch_codepoints(dev)
+    for (K, N), per_step, names in EXAMPLE_PROJECTIONS:
+        for M in (2, 8):
+            record("dequant_matmul", matmul_case(
+                mods, dev, gen, cb, flush, K, N, M, 4,
+                block=fmt.scaling.block_size), model="paper-100m-small",
+                spec=EXAMPLE_SPEC, weights=names, launches_per_step=per_step)
 
 
 def recurrent_rows(mods, dev, gen, cb4, flush, attn_ptxas, record):
@@ -1275,10 +1400,13 @@ def dropped_dispatches(choice, E, capacity_factor):
 
 
 def replay_on_cpu(eng, records, card_cache=False, kv_stats=None,
-                  routes=None, route_stats=None, state_in=None):
+                  routes=None, route_stats=None, state_in=None,
+                  device="cpu"):
     """Replay the card's recorded batches through the plain path on the CPU
     (the same packed weights); yield (card logits, CPU logits, what) for
-    every valid position.
+    every valid position. ``device="cuda"`` replays on the card instead,
+    where the caller routes the kernels to their plain versions
+    (``plain_kernels``).
 
     By default the CPU keeps its own cache, written by its own steps.
     ``card_cache=True`` runs each step instead on the KV cache the card left
@@ -1302,11 +1430,11 @@ def replay_on_cpu(eng, records, card_cache=False, kv_stats=None,
     encode."""
     from repro_torch.models import layers
     from repro_torch.serve.engine import alloc_decode_state, params_to
-    cpu = torch.device("cpu")
-    params = params_to(eng.params, cpu)
+    device = torch.device(device)
+    params = params_to(eng.params, device)
     state = alloc_decode_state(eng.fam, eng.cfg, eng.B, eng.kv_len,
-                               slack=eng.prefill_chunk, device=cpu)
-    state.update(state_in or {})
+                               slack=eng.prefill_chunk, device=device)
+    state.update({k: v.to(device) for k, v in (state_in or {}).items()})
     # the KV stacks of the card's cache; the other entries (recurrent, conv
     # and SSM state) are the CPU's own, wiped by hand at a reset slot
     kv_keys = (() if eng.fam.cache_spec is None else eng.fam.cache_spec(
@@ -1325,41 +1453,44 @@ def replay_on_cpu(eng, records, card_cache=False, kv_stats=None,
     try:
         with torch.inference_mode():
             for rec in records:
-                batch, pos = rec["batch"], rec["pos"].to(torch.int32)
+                batch = {k: v.to(device) for k, v in rec["batch"].items()}
+                pos = rec["pos"].to(device, torch.int32)
                 if card_cache:
                     batch = {k: v for k, v in batch.items() if k != "reset"}
                     if "reset" in rec["batch"]:
-                        rm = rec["batch"]["reset"].bool()
+                        rm = rec["batch"]["reset"].to(device).bool()
                         pos = torch.where(rm, torch.zeros_like(pos), pos)
                         for k, ax in batch_axis.items():
                             shape = [1] * state[k].ndim
                             shape[ax] = -1
                             state[k] = state[k].masked_fill(
                                 rm.reshape(shape), 0)
-                    state = {**state,
-                             **{k: rec["cache"][k] for k in kv_keys}}
+                    state = {**state, **{k: rec["cache"][k].to(device)
+                                         for k in kv_keys}}
                 state["pos"] = pos
                 logits, state = eng.fam.decode_step(params, state, batch,
                                                     eng.cfg)
+                logits = logits.cpu()
                 tv = rec["batch"]["t_valid"].numpy()
                 for i in range(len(tv)):
                     for t in range(int(tv[i])):
                         yield (rec["logits"][i, t].numpy(),
                                logits[i, t].numpy(),
-                               f"card vs CPU plain path, step pos "
-                               f"{int(rec['pos'][i])}")
+                               f"card vs {device.type} plain path, step "
+                               f"pos {int(rec['pos'][i])}")
     finally:
         layers.write_kv_pair, layers.route = write_kv_pair, route
 
 
 def compare_with_cpu(eng, records, card_cache=False, kv_stats=None,
-                     routes=None, route_stats=None, state_in=None):
+                     routes=None, route_stats=None, state_in=None,
+                     device="cpu"):
     """Hold the card's logits to the plain path's replay (``replay_on_cpu``)
     under ``hold_logits``."""
     worst, n_margin = 0.0, 0
     for got, want, what in replay_on_cpu(eng, records, card_cache,
                                          kv_stats, routes, route_stats,
-                                         state_in):
+                                         state_in, device):
         rel, margin = hold_logits(got, want, what)
         worst = max(worst, rel)
         n_margin += margin
@@ -1367,30 +1498,110 @@ def compare_with_cpu(eng, records, card_cache=False, kv_stats=None,
     return worst, n_margin
 
 
+@contextlib.contextmanager
+def plain_kernels():
+    """Route every kernel entry of ``kernels.ops`` to its plain torch
+    version on the card as well (the path a CPU tensor takes: each packed
+    weight dequantised in f32 per call, no launch) while the context
+    lasts."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_quant_ref)
+    from repro_torch.kernels.dequant_matmul.ref import (
+        dequant_matmul_ref, dequant_matmul_t_ref)
+
+    def block_quant(x, codebook, block, *, pack, out, rows):
+        return ops._block_quant_plain(x, codebook, block, pack, out, rows)
+
+    def block_quant_kv(k, v, codebook, block, *, pack, out_k, out_v, rows):
+        return (block_quant(k, codebook, block, pack=pack, out=out_k,
+                            rows=rows),
+                block_quant(v, codebook, block, pack=pack, out=out_v,
+                            rows=rows))
+
+    def decode_attention(q, k_codes, k_scales, v_codes, v_scales, codebook,
+                         q_positions, window, *, ring, bits):
+        return decode_attention_quant_ref(
+            q, k_codes, k_scales, v_codes, v_scales, codebook, q_positions,
+            window=window, ring=ring, bits=bits)
+
+    plain = dict(dequant_matmul_cuda=dequant_matmul_ref,
+                 dequant_matmul_t_cuda=dequant_matmul_t_ref,
+                 block_quant_cuda=block_quant,
+                 block_quant_kv_cuda=block_quant_kv,
+                 decode_attention_quant_cuda=decode_attention)
+    saved = {name: getattr(ops, name) for name in plain}
+    for name, fn in plain.items():
+        setattr(ops, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+def plain_witness(eng, mods, records, what):
+    """A full-depth witness of a served run whose CPU hold is cut in depth:
+    the served engine's own prefill step and first decode step replayed at
+    full depth on the card through the plain path (``plain_kernels``: the
+    same packed weights, no kernel launched), held by the margin rule."""
+    records = records[:2]
+    check(records[0]["T"] > 1 and records[-1]["T"] == 1,
+          f"{what}: the witness needs the prefill and a decode step")
+    launches = {name: m.launches for name, m in mods.items()}
+    t0 = time.monotonic()
+    with plain_kernels():
+        worst, n = compare_with_cpu(eng, records, device=eng.device)
+    torch.cuda.synchronize()
+    check({name: m.launches for name, m in mods.items()} == launches,
+          f"{what}: a kernel launched in the plain replay")
+    return dict(layers=eng.cfg.n_layers, max_rel_logit_err=worst,
+                margin_tokens=n, compared_steps=len(records),
+                seconds=time.monotonic() - t0)
+
+
 def short_requests(vocab, seed=0):
     rng = np.random.default_rng(seed)
     return [(rng.integers(0, vocab, 8).tolist(), 16) for _ in range(4)]
 
 
-def serve_phase(arch, dev, mods, compare_steps=None):
-    """Serve ``arch`` full and hold the card's logits to the CPU plain path
-    replaying the same steps at full depth: every step, or the first
-    ``compare_steps`` (the prefill step and the decode steps after it)."""
+def serve_phase(arch, dev, mods, hold_layers=None, kv_bytes=None):
+    """Serve ``arch`` full and hold the card's logits: at full depth, every
+    step replayed on the CPU plain path; or, with ``hold_layers``, the
+    engine's own prefill step and first decode step replayed at full depth
+    on the card's plain path (``plain_witness``), and the CPU hold on a
+    second engine of that many layers at full width serving the same
+    requests (``depth_hold``, its prefill step and first decode step).
+    ``kv_bytes``: the cache's KV bytes by the reference's count."""
+    torch.cuda.reset_peak_memory_stats(dev)
     eng, setup_s = build_engine(arch, dev)
+    setup_peak = torch.cuda.max_memory_allocated(dev)
     wb = eng.weight_bytes()
     check({k: wb[k] for k in WEIGHT_BYTES[arch]} == WEIGHT_BYTES[arch],
           f"{arch} weight_bytes {wb} != {WEIGHT_BYTES[arch]}")
+    cb = eng.cache_bytes()
+    check(kv_bytes is None or cb["kv"] == kv_bytes,
+          f"{arch}: KV bytes {cb['kv']} != {kv_bytes}")
     reqs = short_requests(eng.cfg.vocab)
     done, stats, records = serve(eng, mods, reqs, keep_logits=True)
     check_run(arch, done, stats, reqs)
-    out = dict(phase="serve", arch=arch, setup_s=setup_s,
-               weight_bytes=wb, cache_bytes=eng.cache_bytes()["total"],
-               peak_mem_bytes=torch.cuda.max_memory_allocated(dev), **stats)
+    out = dict(phase="serve", arch=arch, layers=eng.cfg.n_layers,
+               setup_s=setup_s, setup_peak_mem_bytes=setup_peak,
+               weight_bytes=wb, kv_bytes=cb["kv"], cache_bytes=cb["total"],
+               peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+               launches_per_step={k: n / stats["steps"]
+                                  for k, n in stats["launches"].items()},
+               **stats)
     emit(phase="profile", arch=arch, **profile_steps(eng, mods))
-    if compare_steps is not None:
-        records = records[:compare_steps]
-        check(records[0]["T"] > 1 and records[-1]["T"] == 1,
-              f"{arch}: the compare needs the prefill and a decode step")
+    out["tokens"] = {g.rid: g.tokens for g in done}
+    if hold_layers is not None:
+        out["plain_witness"] = plain_witness(eng, mods, records, arch)
+        del eng, records
+        torch.cuda.empty_cache()
+        out["cpu_hold"] = depth_hold(arch, dev, mods, reqs, hold_layers,
+                                     compare_steps=2)
+        emit(**out)
+        return out
     t0 = time.monotonic()
     worst, n = compare_with_cpu(eng, records)
     out.update(cpu_max_rel_logit_err=worst, cpu_margin_tokens=n,
@@ -1398,8 +1609,63 @@ def serve_phase(arch, dev, mods, compare_steps=None):
                cpu_compared_layers=eng.cfg.n_layers,
                cpu_compare_s=time.monotonic() - t0)
     del records
-    out["tokens"] = {g.rid: g.tokens for g in done}
     emit(**out)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def depth_hold(arch, dev, mods, reqs, layers, compare_steps=None,
+               cache_decodes=0, then=None, **engine_kw):
+    """A served run's CPU hold at cut depth: a second engine of ``arch`` at
+    full width and ``layers`` layers (``engine_kw``: its kv_len and cache
+    format), serving the same requests with the launches of
+    ``LAUNCHES_PER_STEP[arch + " hold"]``, and its steps (the first
+    ``compare_steps``, or all) held to the CPU plain path at that depth.
+
+    ``cache_decodes`` = n holds instead the prefill step and the first n
+    decode steps on the cache the card left (``replay_on_cpu``'s
+    ``card_cache``, with the K/V witness), and reports the drift of a
+    replay on the CPU's own cache: a q4 code flips where a value lies near
+    a midpoint, so the CPU's own cache drifts from the card's with the
+    bf16 rounding of the projections. ``then(eng)`` returns the results of
+    the caller's own checks on the engine, added to the hold's."""
+    t0 = time.monotonic()
+    eng, setup_s = build_engine(arch, dev, n_layers=layers, **engine_kw)
+    done, stats, records = serve(eng, mods, reqs, keep_logits=True,
+                                 cache_decodes=cache_decodes)
+    check_run(f"{arch} hold", done, stats, reqs)
+    if cache_decodes:
+        records = records[:sum("cache" in r for r in records)]
+        check(len(records) > cache_decodes and records[0]["T"] > 1 and
+              all(r["T"] == 1 for r in records[-cache_decodes:]),
+              f"{arch}: the hold needs the prefill and {cache_decodes} "
+              "decode steps")
+    elif compare_steps is not None:
+        records = records[:compare_steps]
+        check(records[0]["T"] > 1 and records[-1]["T"] == 1,
+              f"{arch}: the compare needs the prefill and a decode step")
+    out = dict(layers=layers, setup_s=setup_s, steps=stats["steps"],
+               launches=stats["launches"],
+               tokens={g.rid: g.tokens for g in done})
+    t1 = time.monotonic()
+    if cache_decodes:
+        out["cpu_own_cache_max_rel_logit_err"] = max(
+            float(np.abs(got - want).max() / np.abs(want).max())
+            for got, want, _ in replay_on_cpu(eng, records))
+        kv = dict(codes=0, differ=0, max_codepoints=0, max_scale_rel=0.0)
+        worst, n = compare_with_cpu(eng, records, card_cache=True,
+                                    kv_stats=kv)
+        out["cpu_kv_witness"] = hold_kv_witness(kv)
+    else:
+        worst, n = compare_with_cpu(eng, records)
+    out.update(cpu_max_rel_logit_err=worst, cpu_margin_tokens=n,
+               cpu_compared_steps=len(records),
+               cpu_compare_s=time.monotonic() - t1)
+    del records
+    if then is not None:
+        out.update(then(eng))
+    out["hold_s"] = time.monotonic() - t0
     del eng
     torch.cuda.empty_cache()
     return out
@@ -1450,11 +1716,15 @@ def compare_ring_with_full(ring_records, full_records, ring_slots):
 
 
 def gemma3_phase(dev, mods):
-    """gemma3-1b full, kv_len 1024: q8 (4 requests compared with the CPU
-    plain path, profiled, then a 600-token prompt that wraps the 520-slot
-    rings, held to the same request on full-length caches), then the same 4
-    requests with a q4 cache on the same packed weights (prefill and the
-    first three decode steps compared with the CPU plain path)."""
+    """gemma3-1b full, kv_len 1024: q8 (4 requests, their prefill step and
+    first decode step replayed at full depth on the card's plain path
+    (``plain_witness``), profiled, then a 600-token prompt that wraps the
+    520-slot rings, held to the same request on full-length caches; the CPU
+    hold on a second engine of ``GEMMA_HOLD_LAYERS`` layers serving the
+    same 4 requests, every step compared), then the same 4 requests with a q4 cache on the same packed
+    weights (the prefill and the first three decode steps of a second q4
+    engine of ``GEMMA_HOLD_LAYERS`` layers compared with the CPU plain
+    path on the card's cache, with the K/V witness)."""
     from repro_torch.serve.engine import ServeEngine
     arch = "gemma3-1b"
     eng, setup_s = build_engine(arch, dev, kv_len=1024, kv_format="q8")
@@ -1478,8 +1748,7 @@ def gemma3_phase(dev, mods):
               [g["length"] for g in cb["cache_groups"]] == [520, 1032],
               f"{arch} {fmt}: cache_bytes {cb['kv']} (groups "
               f"{cb['cache_groups']}) != {KV_BYTES[fmt]}")
-        done, stats, records = serve(eng, mods, reqs, keep_logits=True,
-                                     cache_decodes=3 if fmt == "q4" else 0)
+        done, stats, records = serve(eng, mods, reqs, keep_logits=True)
         check_run(arch, done, stats, reqs)
         out = dict(phase="serve", arch=arch, kv_format=fmt, **setup,
                    weight_bytes=wb, kv_bytes=cb["kv"],
@@ -1487,6 +1756,10 @@ def gemma3_phase(dev, mods):
                    kv_scale_bytes=cb["scale_bytes"],
                    peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
                    **stats)
+        if fmt == "q8":
+            out["plain_witness"] = plain_witness(eng, mods, records,
+                                                 f"{arch} {fmt}")
+        del records
         if fmt == "q8":
             emit(phase="profile", arch=arch, kv_format=fmt,
                  **profile_steps(eng, mods))
@@ -1507,33 +1780,16 @@ def gemma3_phase(dev, mods):
                  full_length_tokens=full_done[0].tokens,
                  ring_tokens=long_done[0].tokens, **witness)
             runs += [long_stats, full_stats]
-            t0 = time.monotonic()
-            worst, n = compare_with_cpu(eng, records)
+            out["cpu_hold"] = depth_hold(arch, dev, mods, reqs,
+                                         GEMMA_HOLD_LAYERS, kv_len=1024,
+                                         kv_format="q8")
         else:
             # the prefill step and the first three decode steps (the steps
-            # whose cache was recorded), to keep the CPU replay short. A q4
-            # code flips where a value lies near a midpoint, so the CPU's
-            # own cache drifts from the card's with the bf16 rounding of
-            # the projections: the held replay reads the card's cache, its
-            # K/V witness holds the CPU's own new codes to the card's, and
-            # the drift of a replay on the CPU's own cache is reported
-            records = records[:sum("cache" in r for r in records)]
-            check(len(records) >= 4 and records[0]["T"] > 1
-                  and [r["T"] for r in records[-3:]] == [1, 1, 1],
-                  "the q4 compare needs the prefill and 3 decode steps")
-            out["cpu_own_cache_max_rel_logit_err"] = max(
-                float(np.abs(got - want).max() / np.abs(want).max())
-                for got, want, _ in replay_on_cpu(eng, records))
-            t0 = time.monotonic()
-            kv = dict(codes=0, differ=0, max_codepoints=0,
-                      max_scale_rel=0.0)
-            worst, n = compare_with_cpu(eng, records, card_cache=True,
-                                        kv_stats=kv)
-            out["cpu_kv_witness"] = hold_kv_witness(kv)
-            out["cpu_compared_steps"] = len(records)
-        out.update(cpu_max_rel_logit_err=worst, cpu_margin_tokens=n,
-                   cpu_compare_s=time.monotonic() - t0)
-        del records
+            # whose cache was recorded), on the card's cache with the K/V
+            # witness, to keep the CPU replay short
+            out["cpu_hold"] = depth_hold(arch, dev, mods, reqs,
+                                         GEMMA_HOLD_LAYERS, cache_decodes=3,
+                                         kv_len=1024, kv_format="q4")
         out["tokens"] = {g.rid: g.tokens for g in done}
         emit(**out)
         runs.append(stats)
@@ -1609,7 +1865,8 @@ def allocation_phase(dev, mods, tc_ptxas):
     (182 + 1 matmul launches, held to the dense ``apply`` over the
     dequantised checkpoint, and one T=512 sequence to the CPU plain path),
     the card's Fisher against the CPU's on one T=256 sequence with the same
-    labels, ``--kv-format auto`` serving, and the matmul kernels' times at
+    labels (``GEMMA_HOLD_LAYERS`` layers at full width), ``--kv-format
+    auto`` serving, and the matmul kernels' times at
     M = 2048. Returns the launch counts of its runs."""
     from repro_torch import configs
     from repro_torch.core import (build_allocated_plan, build_plan, fisher,
@@ -1753,7 +2010,13 @@ def allocation_phase(dev, mods, tc_ptxas):
          cpu_s=cpu_s)
 
     # 4. the card's Fisher against the CPU's, one T=256 sequence, the same
-    # labels (drawn on the CPU) on both sides
+    # labels (drawn on the CPU) on both sides, on a gemma3-1b of
+    # GEMMA_HOLD_LAYERS layers at full width (the full-depth CPU backward
+    # took ~50-60 s)
+    del params
+    torch.cuda.empty_cache()
+    hold_cfg = cfg.replace(n_layers=GEMMA_HOLD_LAYERS)
+    params = transformer.init(hold_cfg, seed=0, device=dev)
     seq = [{"tokens": held[1]["tokens"][1:2, :256]}]
     labels = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 256)))
     sample = fisher._sample_labels
@@ -1761,13 +2024,14 @@ def allocation_phase(dev, mods, tc_ptxas):
     try:
         t0 = time.monotonic()
         f_card = fisher.per_tensor_stats(
-            params, fisher.estimate_diag_fisher(apply, params, seq, None))
+            params, fisher.estimate_diag_fisher(
+                lambda p, b: apply(p, b, hold_cfg), params, seq, None))
         card_s = time.monotonic() - t0
         cpu_params = params_to(params, torch.device("cpu"))
         t0 = time.monotonic()
         f_cpu = fisher.per_tensor_stats(
             cpu_params, fisher.estimate_diag_fisher(
-                lambda p, b: apply(p, b, cfg.replace(remat="none")),
+                lambda p, b: apply(p, b, hold_cfg.replace(remat="none")),
                 cpu_params, [{"tokens": seq[0]["tokens"].cpu()}], None))
         cpu_s = time.monotonic() - t0
     finally:
@@ -1777,8 +2041,8 @@ def allocation_phase(dev, mods, tc_ptxas):
            / f_cpu[k]["fisher_mean"] for k in f_cpu}
     check(max(rel.values()) <= 0.05, f"card vs CPU fisher_mean: {rel}")
     emit(phase="allocation", step="fisher_vs_cpu", tokens=256,
-         max_rel_diff=max(rel.values()), rel_diff=rel, card_s=card_s,
-         cpu_s=cpu_s)
+         layers=GEMMA_HOLD_LAYERS, max_rel_diff=max(rel.values()),
+         rel_diff=rel, card_s=card_s, cpu_s=cpu_s)
     del params
     torch.cuda.empty_cache()
 
@@ -1991,17 +2255,20 @@ def resume_phase(dev, mods, root):
 def compressed_checkpoint(dev, mods, params, root):
     """The entropy-coded checkpoint (``train.compressed_ckpt``, 4 bits of
     entropy on a uniform grid, Huffman-coded on the host) of the trained
-    paper-100m full parameters: its bytes beside the f32 and the packed
-    babsmax64:n4 bytes, the bits per parameter, the codec's host seconds;
-    the loaded tree within the grid of the saved one, then served packed
-    (4 requests, no dense fallback) with the card's logits held to the CPU
-    plain path."""
+    paper-100m full parameters, cut to their first ``CODEC_LAYERS`` layers
+    (the embedding and unembedding whole): its bytes beside the f32 and
+    the packed babsmax64:n4 bytes, the bits per parameter, the codec's host
+    seconds; the loaded tree within the grid of the saved one, then served
+    packed at that depth (4 requests, no dense fallback) with the card's
+    logits held to the CPU plain path."""
     from repro_torch import configs
     from repro_torch.core import build_plan
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.train import compressed_ckpt
     from repro_torch.core.element import uniform_grid
     from repro_torch.core.plan import _flat_with_paths
+    params = {**params, "layers": {k: v[:CODEC_LAYERS]
+                                   for k, v in params["layers"].items()}}
     n_params = sum(x.numel() for _, x in flat_with_paths(params))
     fitted, fit = [], compressed_ckpt.fit_grid_delta
 
@@ -2057,7 +2324,8 @@ def compressed_checkpoint(dev, mods, params, root):
     npz.close()
     check(3.9 < man["achieved_bits_per_param"] < 4.1,
           f"achieved {man['achieved_bits_per_param']} bits per parameter")
-    cfg = configs.get_config("paper-100m", "full")
+    cfg = configs.get_config("paper-100m", "full").replace(
+        n_layers=CODEC_LAYERS)
     plan = build_plan(loaded, SPEC)
     eng = ServeEngine.from_quantised(cfg, plan.quantise(loaded), plan,
                                      batch_slots=4, kv_len=256,
@@ -2067,12 +2335,13 @@ def compressed_checkpoint(dev, mods, params, root):
     wb = eng.weight_bytes()
     reqs = short_requests(cfg.vocab, seed=6)
     done, stats, records = serve(eng, mods, reqs, keep_logits=True)
-    check_run("paper-100m", done, stats, reqs)
+    check_run("paper-100m codec", done, stats, reqs)
     check(not eng.degraded, "the compressed checkpoint's engine degraded")
     t0 = time.monotonic()
     rel, n = compare_with_cpu(eng, records)
     emit(phase="train", step="compressed_checkpoint", arch="paper-100m",
-         params=n_params, compressed_bytes=nbytes, f32_bytes=4 * n_params,
+         layers=CODEC_LAYERS, params=n_params, compressed_bytes=nbytes,
+         f32_bytes=4 * n_params,
          packed_bytes=wb["total"],
          achieved_bits_per_param=man["achieved_bits_per_param"],
          file_bits_per_param=8 * nbytes / n_params, save_s=save_s,
@@ -3229,81 +3498,114 @@ def whisper_cli(mods):
 
 
 def internvl_phase(dev, mods):
-    """internvl2-26b at full width and ``INTERNVL_LAYERS`` of its 48 layers,
-    babsmax64:n4 packed (the embedding in byte codes: odd vocab; the
-    unembed dense: 92553 is no multiple of 64), q8 cache: 4 requests with
-    the launches of ``LAUNCHES_PER_STEP``, weight and KV bytes, the prefill
-    step and first decode step held to the CPU plain path at the same
-    depth; then ``apply`` over 256 seeded patch tokens of width 3200 and a
-    64-token text on the card, held position by position to the CPU plain
-    path (the margin rule). No profile: late in the script the trace of
-    this run recorded 7 device kernels for its 8 attention calls (the
-    first prefill call's missing), in three runs out of three, and all 8
-    in a fresh process (``scripts/profile_attention_events.py``); the CPU
-    hold of the served prefill step reads both layers' attention
-    outputs."""
-    from repro_torch.core.tensor_format import PackedTensor
+    """internvl2-26b full (48 layers, d 6144, 48 heads over 8 KV heads of
+    128, d_ff 16384, vocab 92553), babsmax64:n4 packed (the embedding in
+    byte codes: odd vocab; the unembed dense: 92553 is no multiple of 64),
+    q8 cache: 4 requests with the launches of ``LAUNCHES_PER_STEP`` (336
+    ``dequant_matmul``, 48 ``block_quant_kv`` and 48
+    ``decode_attention_quant`` a step), weight and KV bytes, then ``apply``
+    over 256 seeded patch tokens of width 3200 and a 64-token text (336
+    ``dequant_matmul`` launches at M = 320). Held on a second engine at
+    full width and ``INTERNVL_LAYERS`` layers (``depth_hold``, with
+    ``internvl_apply_hold``); the served prefill step and first decode step
+    replayed at full depth on the card's plain path (``plain_witness``). No
+    profile: late in the script the trace of this run recorded 7 device
+    kernels for its 8 attention calls (the first prefill call's missing),
+    in three runs out of three, and all 8 in a fresh process
+    (``scripts/profile_attention_events.py``); the CPU hold of the served
+    prefill step reads the attention outputs."""
     from repro_torch.data.pipeline import make_batch_fn
-    from repro_torch.serve.engine import params_to
     arch = INTERNVL_ARCH
     t_phase = time.monotonic()
     torch.cuda.reset_peak_memory_stats(dev)
-    eng, setup_s = build_engine(arch, dev, kv_len=256, kv_format="q8",
-                                n_layers=INTERNVL_LAYERS)
+    eng, setup_s = build_engine(arch, dev, kv_len=256, kv_format="q8")
+    setup_peak = torch.cuda.max_memory_allocated(dev)
     cfg = eng.cfg
-    wb = eng.weight_bytes()
-    check({k: wb[k] for k in WEIGHT_BYTES[arch]} == WEIGHT_BYTES[arch],
-          f"{arch} weight_bytes {wb} != {WEIGHT_BYTES[arch]}")
-    emb, unemb = eng.params["embed"], eng.params["unembed"]
-    check(isinstance(emb, PackedTensor) and emb.bits == 8 and
-          not isinstance(unemb, PackedTensor),
-          f"{arch}: the embedding must pack in byte codes, the unembed "
-          "stay dense")
+    check_internvl_engine(eng, arch, INTERNVL_KV_BYTES)
     reqs = short_requests(cfg.vocab)
     done, stats, records = serve(eng, mods, reqs, keep_logits=True)
     check_run(arch + " q8", done, stats, reqs)
-    check(eng.cache_bytes()["kv"] == INTERNVL_KV_BYTES,
-          f"{arch}: KV bytes {eng.cache_bytes()['kv']}")
     out = dict(phase="internvl", arch=arch, layers=cfg.n_layers,
-               kv_format="q8", setup_s=setup_s, weight_bytes=wb,
-               kv_bytes=INTERNVL_KV_BYTES,
+               kv_format="q8", setup_s=setup_s,
+               setup_peak_mem_bytes=setup_peak,
+               weight_bytes=eng.weight_bytes(), kv_bytes=INTERNVL_KV_BYTES,
                peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+               launches_per_step={k: n / stats["steps"]
+                                  for k, n in stats["launches"].items()},
                **stats)
     out["tokens"] = {g.rid: g.tokens for g in done}
-    records = records[:2]
-    check(records[0]["T"] > 1 and records[-1]["T"] == 1,
-          f"{arch}: the compare needs the prefill and a decode step")
-    t0 = time.monotonic()
-    worst, n = compare_with_cpu(eng, records)
-    out.update(serve_cpu_max_rel_logit_err=worst, serve_cpu_margin_tokens=n,
-               serve_cpu_compare_s=time.monotonic() - t0)
-    del records
     batch = make_batch_fn(cfg, seq=64, batch=1, seed=0)(0)
     (logits, t_card), launches = served(mods, lambda: timed_apply(
         eng.fam.apply, eng.params, batch, cfg, dev))
+    check_internvl_apply(logits, launches, cfg)
+    out.update(apply_tokens=[cfg.n_vis_tokens, 64], apply_ms=t_card * 1e3,
+               apply_launches=launches,
+               apply_peak_mem_bytes=torch.cuda.max_memory_allocated(dev))
+    del logits
+    out["plain_witness"] = plain_witness(eng, mods, records, arch)
+    del eng, records
+    torch.cuda.empty_cache()
+    out["cpu_hold"] = depth_hold(
+        arch, dev, mods, reqs, INTERNVL_LAYERS, compare_steps=2,
+        then=lambda hold: internvl_apply_hold(hold, mods, batch, dev),
+        kv_len=256, kv_format="q8")
+    out["phase_s"] = time.monotonic() - t_phase
+    emit(**out)
+    return [stats, {"launches": launches}]
+
+
+def check_internvl_engine(eng, key, kv_bytes):
+    """The engine's resident weight bytes (``WEIGHT_BYTES[key]``) and KV
+    bytes by the reference's count; the embedding packed in byte codes and
+    the unembed dense."""
+    from repro_torch.core.tensor_format import PackedTensor
+    wb = eng.weight_bytes()
+    check({k: wb[k] for k in WEIGHT_BYTES[key]} == WEIGHT_BYTES[key],
+          f"{key} weight_bytes {wb} != {WEIGHT_BYTES[key]}")
+    check(eng.cache_bytes()["kv"] == kv_bytes,
+          f"{key}: KV bytes {eng.cache_bytes()['kv']} != {kv_bytes}")
+    emb, unemb = eng.params["embed"], eng.params["unembed"]
+    check(isinstance(emb, PackedTensor) and emb.bits == 8 and
+          not isinstance(unemb, PackedTensor),
+          f"{key}: the embedding must pack in byte codes, the unembed "
+          "stay dense")
+
+
+def check_internvl_apply(logits, launches, cfg):
+    """``apply`` over the patches and the text: 7 ``dequant_matmul``
+    launches a layer and no other kernel, finite logits of every
+    position."""
     check(launches == {"dequant_matmul": 7 * cfg.n_layers,
                        "dequant_matmul_t": 0, "block_quant": 0,
                        "decode_attention_quant": 0},
-          f"{arch} apply: launches {launches}")
+          f"{cfg.name} apply ({cfg.n_layers} layers): launches {launches}")
     check(tuple(logits.shape) == (1, cfg.n_vis_tokens + 64, cfg.vocab) and
-          bool(torch.isfinite(logits).all()), f"{arch} apply: logits "
+          bool(torch.isfinite(logits).all()), f"{cfg.name} apply: logits "
           f"{tuple(logits.shape)}")
+
+
+def internvl_apply_hold(eng, mods, batch, dev):
+    """On internvl2-26b's cut-depth hold engine (``depth_hold``'s
+    ``then``): its weight and KV bytes, then its ``apply`` over the same
+    patches and text held position by position to the CPU plain path (the
+    margin rule)."""
+    from repro_torch.serve.engine import params_to
+    cfg = eng.cfg
+    check_internvl_engine(eng, INTERNVL_ARCH + " hold",
+                          INTERNVL_HOLD_KV_BYTES)
+    (logits, t_card), launches = served(mods, lambda: timed_apply(
+        eng.fam.apply, eng.params, batch, cfg, dev))
+    check_internvl_apply(logits, launches, cfg)
     t0 = time.monotonic()
     want, _ = timed_apply(eng.fam.apply, params_to(eng.params,
                                                    torch.device("cpu")),
                           batch, cfg, torch.device("cpu"))
-    rel, n = hold_logits(logits[0].cpu(), want[0], f"{arch} apply, card vs "
-                         "CPU plain path")
-    check(n > 0, f"{arch} apply: no high-margin position to compare")
-    out.update(apply_tokens=[cfg.n_vis_tokens, 64], apply_ms=t_card * 1e3,
-               apply_launches=launches, cpu_max_rel_logit_err=rel,
-               cpu_margin_positions=n, cpu_compare_s=time.monotonic() - t0,
-               phase_s=time.monotonic() - t_phase)
-    emit(**out)
-    del eng, logits, want
-    torch.cuda.empty_cache()
-    return [stats, {"launches": launches}]
-
+    rel, n = hold_logits(logits[0].cpu(), want[0], f"{cfg.name} apply, card "
+                         "vs CPU plain path")
+    check(n > 0, f"{cfg.name} apply: no high-margin position to compare")
+    return dict(apply_ms=t_card * 1e3, apply_launches=launches,
+                apply_cpu_max_rel_logit_err=rel, apply_cpu_margin_positions=n,
+                apply_cpu_compare_s=time.monotonic() - t0)
 
 
 # ---------------------------------------------------------------------------
@@ -3819,6 +4121,231 @@ def ep_check(dev, mods):
             launches)
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the reference's example entry points, in the port
+
+
+EXAMPLES = Path(__file__).resolve().parent / "examples"
+# the reference's numbers at full precision (examples/quickstart.py and
+# examples/format_design.py's calls, JAX on the CPU; tests/
+# test_torch_examples.py holds these pins to them): per format (bits/param,
+# R); per scaling (bits/param, R, R·2^b); the ν search (ν, scale
+# multiplier, R); per grid target (measured bits, R, R·2^b, Huffman bits)
+QUICKSTART_REF = dict(
+    formats={"babsmax128:t4": (4.125, 0.09716586023569107),
+             "trms:t4": (4.000244140625, 0.11586100608110428),
+             "trms:t4:sp0.001": (4.048244140625, 0.11473309993743896),
+             "bsignmax128:t4": (4.125, 0.10499599575996399)},
+    model_bits=5.297718419588203,
+    codebook=[-1.0, -0.7047783136367798, -0.5230731964111328,
+              -0.3913331925868988, -0.28597646951675415, -0.19577556848526,
+              -0.11438539624214172, -0.037643104791641235,
+              0.037643104791641235, 0.11438539624214172, 0.19577556848526,
+              0.28597646951675415, 0.3913331925868988, 0.5230731964111328,
+              0.7047783136367798, 1.0])
+FORMAT_DESIGN_REF = dict(
+    scaling={"trms:t4nu5": (4.00006103515625, 0.14509913325309753,
+                            2.3216843519544703),
+             "tabsmax:t4nu5": (4.00006103515625, 0.21155808866024017,
+                               3.3850726255898613),
+             "cabsmax:t4nu5": (4.00006103515625, 0.21155808866024017,
+                               3.3850726255898613),
+             "babsmax128:t4nu5": (4.125, 0.11162444949150085,
+                                  1.9476372051997468),
+             "bsignmax128:t4nu5": (4.125, 0.11417784541845322,
+                                   1.9921891732461072),
+             "trms:t4nu5:sp0.001": (4.04806103515625, 0.13162975013256073,
+                                    2.1774182205279673)},
+    nu=(5.67555451222336, 1.0, 0.14295311272144318),
+    grid={3.0: (2.9968379747998637, 0.14446793496608734,
+                1.1532131542153545, 3.0458717346191406),
+          4.0: (3.993908901367775, 0.07151111215353012,
+                1.1393572273953751, 4.024711608886719)})
+# examples/train_quantise_serve.py at its defaults (JAX on the CPU): the
+# served bits/param on paper-100m small's shapes, and the paper's two
+# claims as ratios of its printed KLs (allocated 0.00194 / flat 0.00386;
+# after QAT 0.01239 / int3 direct cast 0.02790)
+TQS_REF = dict(bits_served=4.132217494974052,
+               allocated_over_flat=0.00194 / 0.00386,
+               qat_over_int3=0.01239 / 0.02790)
+
+
+def load_example(name):
+    """``examples/<name>_torch.py`` as a module (the folder is no
+    package)."""
+    path = EXAMPLES / f"{name}_torch.py"
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def hold_rel(got, want, tol, what):
+    """``got`` within ``tol`` of ``want``, relative; returns the error."""
+    rel = abs(got - want) / abs(want)
+    check(rel <= tol, f"{what}: {got} against the reference's {want} "
+          f"(relative {rel} > {tol})")
+    return rel
+
+
+def run_example(mods, mod, argv):
+    """``mod.main(argv)`` of a loaded example, its printout captured, with
+    every kernel's launch count set to 0 just before it and read just after
+    it. Returns (the numbers ``main`` returned, its printout, launches,
+    seconds)."""
+    t0 = time.monotonic()
+    (res, text), launches = served(mods, lambda: quiet(mod.main, argv))
+    return res, text, launches, time.monotonic() - t0
+
+
+def examples_phase(dev, mods):
+    """The three ``examples/*_torch.py`` through their ``main(["--device",
+    "cuda"])``, each held to the reference's numbers: quickstart's and
+    format_design's bits/param within 1e-9 and R and R·2^b within 1e-3
+    relative, ν, the exact packed round trip and the codebook;
+    train_quantise_serve at its defaults (150 steps, 40 QAT steps, seq 128,
+    batch 8): the loss falls, the allocation averages 4.000 bits within
+    1e-3 in [2, 8], the allocated plan's direct-cast KL below the flat
+    one's and the KL after QAT below the int3 direct cast's (the paper's
+    claims), the served bits/param the reference's within 1e-9; its packed
+    engine (babsmax128:t4: a Student-t codebook, 128-wide blocks) launches
+    ``dequant_matmul`` 31 times a step, and its served steps are held to
+    the CPU plain path on the same packed weights. Returns the launches of
+    the three runs."""
+    runs = []
+    q, text, launches, secs = run_example(mods, load_example("quickstart"),
+                                          ["--device", "cuda"])
+    ref = QUICKSTART_REF
+    check(list(q["formats"]) == list(ref["formats"]),
+          f"quickstart formats {list(q['formats'])}")
+    r_err = {spec: hold_rel(q["formats"][spec]["R"], r, 1e-3,
+                            f"quickstart {spec} R")
+             for spec, (_, r) in ref["formats"].items()}
+    for spec, (bits, _) in ref["formats"].items():
+        hold_rel(q["formats"][spec]["bits"], bits, 1e-9,
+                 f"quickstart {spec} bits/param")
+    hold_rel(q["model_bits"], ref["model_bits"], 1e-9,
+             "quickstart model bits/param")
+    check(q["round_trip"] == 0.0,
+          f"quickstart packed round trip {q['round_trip']}")
+    check(q["codebook"] == ref["codebook"],
+          f"quickstart codebook {q['codebook']}")
+    check(not any(launches.values()), f"quickstart launched {launches}")
+    emit(phase="examples", example="quickstart", s=secs, **q,
+         R_rel_err=r_err, report=text.splitlines())
+    runs.append({"launches": launches})
+
+    f, text, launches, secs = run_example(
+        mods, load_example("format_design"), ["--device", "cuda"])
+    ref = FORMAT_DESIGN_REF
+    check(list(f["scaling"]) == list(ref["scaling"]),
+          f"format_design scalings {list(f['scaling'])}")
+    errs = {}
+    for spec, (bits, r, r2b) in ref["scaling"].items():
+        got = f["scaling"][spec]
+        hold_rel(got["bits"], bits, 1e-9, f"format_design {spec} bits")
+        errs[spec] = [hold_rel(got["R"], r, 1e-3, f"format_design {spec} R"),
+                      hold_rel(got["R_2b"], r2b, 1e-3,
+                               f"format_design {spec} R·2^b")]
+    nu, mult, r = ref["nu"]
+    check(f["nu"]["nu"] == nu and round(nu, 1) == 5.7 and
+          f["nu"]["scale_mult"] == mult,
+          f"format_design ν search {f['nu']} against the reference's "
+          f"{ref['nu']}")
+    errs["nu_R"] = hold_rel(f["nu"]["R"], r, 1e-3, "format_design ν's R")
+    for target, (bits, r, r2b, huff) in ref["grid"].items():
+        got = f["grid"][target]
+        hold_rel(got["bits"], bits, 1e-9, f"grid@{target} bits")
+        hold_rel(got["huffman_bits"], huff, 1e-9,
+                 f"grid@{target} Huffman bits")
+        errs[f"grid@{target}"] = [
+            hold_rel(got["R"], r, 1e-3, f"grid@{target} R"),
+            hold_rel(got["R_2b"], r2b, 1e-3, f"grid@{target} R·2^b")]
+    check(not any(launches.values()), f"format_design launched {launches}")
+    emit(phase="examples", example="format_design", s=secs, **f,
+         rel_err=errs, report=text.splitlines())
+    runs.append({"launches": launches})
+
+    runs.append(train_quantise_serve_example(dev, mods))
+    return runs
+
+
+def train_quantise_serve_example(dev, mods):
+    """The §4 pipeline example at its defaults (``examples_phase``)."""
+    from repro_torch.core.tensor_format import PackedTensor
+    mod = load_example("train_quantise_serve")
+    engine_cls, served_by = mod.ServeEngine, {}
+
+    class Recorded:
+        """The example's ``ServeEngine``, whose ``from_quantised`` engine
+        records its steps (``StepRecorder``)."""
+        @staticmethod
+        def from_quantised(*args, **kw):
+            eng = engine_cls.from_quantised(*args, **kw)
+            rec = StepRecorder(eng.fam.decode_step, keep_logits=True)
+            eng.fam = dataclasses.replace(eng.fam, decode_step=rec)
+            served_by.update(engine=eng, recorder=rec)
+            return eng
+    mod.ServeEngine = Recorded
+    torch.cuda.reset_peak_memory_stats(dev)
+    r, text, launches, secs = run_example(mods, mod, ["--device", "cuda"])
+    eng, rec = served_by["engine"], served_by["recorder"]
+    eng.fam = dataclasses.replace(eng.fam, decode_step=rec.step)
+    records = rec.records
+    what = "train_quantise_serve"
+    check(r["losses"][1] < r["losses"][0], f"{what}: loss {r['losses']}")
+    alloc = r["allocation"]
+    check(abs(r["average_bits"] - 4.0) <= 1e-3 and
+          all(2.0 <= b <= 8.0 for b in alloc.values()),
+          f"{what}: allocation averages {r['average_bits']} bits, spread "
+          f"{min(alloc.values())}-{max(alloc.values())}")
+    check(r["kl_allocated"] < r["kl_flat"], f"{what}: the allocated plan's "
+          f"KL {r['kl_allocated']} is not below the flat plan's "
+          f"{r['kl_flat']}")
+    check(r["kl_qat"] < r["kl_int3"], f"{what}: KL after QAT {r['kl_qat']} "
+          f"is not below the int3 direct cast's {r['kl_int3']}")
+    bits_err = hold_rel(r["bits_served"], TQS_REF["bits_served"], 1e-9,
+                        f"{what}: served bits/param")
+    check(sorted(r["tokens"]) == [0, 1, 2, 3] and
+          all(len(t) == 8 for t in r["tokens"].values()),
+          f"{what}: served {r['tokens']}")
+    check(not eng.degraded, f"{what}: the engine degraded to dense")
+    dense = [n for n, x in flat_with_paths(eng.params)
+             if not isinstance(x, PackedTensor) and x.ndim >= 2
+             and x.numel() >= 4096]
+    check(dense == EXAMPLE_UNPACKED, f"{what}: planned tensors served "
+          f"dense {dense}, expected {EXAMPLE_UNPACKED}")
+    steps = eng.steps_total
+    per_step = LAUNCHES_PER_STEP["paper-100m-small"]
+    want = {k: per_step.get(k, 0) * steps for k in mods}
+    check(launches == want, f"{what}: launches {launches} over {steps} "
+          f"steps, expected {want}")
+    t0 = time.monotonic()
+    worst, n = compare_with_cpu(eng, records)
+    emit(phase="examples", example=what, s=secs, spec=EXAMPLE_SPEC,
+         peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+         losses=r["losses"], average_bits=r["average_bits"],
+         min_bits=min(alloc.values()), max_bits=max(alloc.values()),
+         kl_flat=r["kl_flat"], kl_allocated=r["kl_allocated"],
+         kl_int3=r["kl_int3"], kl_qat=r["kl_qat"],
+         allocated_over_flat=r["kl_allocated"] / r["kl_flat"],
+         qat_over_int3=r["kl_qat"] / r["kl_int3"],
+         reference_allocated_over_flat=TQS_REF["allocated_over_flat"],
+         reference_qat_over_int3=TQS_REF["qat_over_int3"],
+         bits_served=r["bits_served"], bits_rel_err=bits_err,
+         dense_planned=dense, steps=steps, launches=launches,
+         launches_per_step=per_step,
+         decode_ms_per_step=1e3 * float(np.median(
+             [x["s"] for x in records if x["T"] == 1])),
+         cpu_max_rel_logit_err=worst, cpu_margin_tokens=n,
+         cpu_compared_steps=len(records),
+         cpu_compare_s=time.monotonic() - t0, tokens=r["tokens"],
+         report=text.splitlines())
+    del eng, records
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
 def timed_apply(apply, params, batch, cfg, dev):
     """``apply`` on ``batch`` (numpy) moved to ``dev``, under inference
     mode; returns (logits, seconds, the device synchronised)."""
@@ -3973,6 +4500,21 @@ def summary(rows, runs):
                   lambda r: r["launches_per_step"])
     emit(phase="summary", measured_over="one deepseek-7b decode step at "
          "M=4 (211 launches)", kernel="dequant_matmul", **ds)
+    emit(phase="summary", kernel="dequant_matmul", measured_over="one "
+         f"{INTERNLM_ARCH} decode step at M=4 (337 launches)",
+         **per_step(rows["dequant_matmul"],
+                    lambda r: r.get("model") == INTERNLM_ARCH and
+                    r["M"] == 4, lambda r: r["launches_per_step"]))
+    emit(phase="summary", kernel="dequant_matmul", measured_over="one "
+         f"{INTERNVL_ARCH} apply, M={INTERNVL_APPLY_M} (336 launches)",
+         **per_step(rows["dequant_matmul"],
+                    lambda r: r.get("model") == INTERNVL_ARCH,
+                    lambda r: r["launches_per_apply"]))
+    emit(phase="summary", kernel="dequant_matmul", measured_over="one "
+         f"paper-100m-small {EXAMPLE_SPEC} decode step at M=2 (31 launches)",
+         **per_step(rows["dequant_matmul"],
+                    lambda r: r.get("model") == "paper-100m-small" and
+                    r["M"] == 2, lambda r: r["launches_per_step"]))
     # qwen2-moe-a2.7b's decode step: all 241 launches, and the 72 over the
     # expert stacks (lead dim E = 60, M = 4 rows an expert)
     for what, lead in (("241 launches", None), ("its 72 expert-stack "
@@ -4116,8 +4658,13 @@ def main() -> int:
     rows = kernel_phase(mods, dev, tc_ptxas, attn_ptxas)
     emit(phase="timing", kernel_phase_end_s=time.monotonic() - t_start)
     paper = serve_phase("paper-100m", dev, mods)
-    deepseek = serve_phase("deepseek-7b", dev, mods, compare_steps=2)
+    deepseek = serve_phase("deepseek-7b", dev, mods,
+                           hold_layers=DEEPSEEK_HOLD_LAYERS)
     emit(phase="timing", dense_serve_end_s=time.monotonic() - t_start)
+    internlm = serve_phase(INTERNLM_ARCH, dev, mods,
+                           hold_layers=INTERNLM_HOLD_LAYERS,
+                           kv_bytes=INTERNLM_KV_BYTES)
+    emit(phase="timing", internlm2_end_s=time.monotonic() - t_start)
     gemma = gemma3_phase(dev, mods)
     emit(phase="timing", gemma3_end_s=time.monotonic() - t_start)
     alloc_runs, tf_rows = allocation_phase(dev, mods, tc_ptxas)
@@ -4140,11 +4687,13 @@ def main() -> int:
     emit(phase="timing", zamba2_end_s=time.monotonic() - t_start)
     multidevice_runs = multidevice_phase(dev, mods)
     emit(phase="timing", multidevice_end_s=time.monotonic() - t_start)
+    example_runs = examples_phase(dev, mods)
+    emit(phase="timing", examples_end_s=time.monotonic() - t_start)
 
-    line = summary(rows, [paper, deepseek, *gemma, *alloc_runs, *train_runs,
-                          *frontend_runs, *moe_runs, *whisper_runs,
-                          *internvl_runs, *rwkv_runs, *zamba_runs,
-                          *multidevice_runs])
+    line = summary(rows, [paper, deepseek, internlm, *gemma, *alloc_runs,
+                          *train_runs, *frontend_runs, *moe_runs,
+                          *whisper_runs, *internvl_runs, *rwkv_runs,
+                          *zamba_runs, *multidevice_runs, *example_runs])
     emit(phase="timing", total_s=time.monotonic() - t_start)
     emit(kernels=line)
     emit(ok=True, device={"platform": "gpu",

@@ -209,6 +209,41 @@ def test_full_width_weight_bytes_equal_the_reference(n_layers):
         assert got == dict(total=3_505_222_336, codes=958_715_904,
                            scales=42_149_568, codebooks=512,
                            dense=2_504_356_352)
+    else:
+        assert got == dict(total=13_039_825_600, codes=9_930_332_160,
+                           scales=602_875_584, codebooks=512,
+                           dense=2_506_617_344)
+
+
+INTERNLM_FULL_BYTES = dict(total=10_553_303_616, codes=9_930_276_864,
+                           scales=620_642_304, codebooks=576, dense=2_383_872)
+
+
+def test_internlm2_full_weight_bytes_equal_the_reference():
+    """internlm2-20b full (internvl2-26b's backbone, text only): every
+    projection and both tables pack (vocab 92544 = 64 x 1446, untied); the
+    reference's count by its own packing rules, which the card run holds
+    its engine to."""
+    cfg = configs.get_config("internlm2-20b", "full")
+    got = meta_weight_bytes(cfg)
+    assert got == reference_full_bytes(
+        jconfigs.get_config("internlm2-20b", "full"))
+    assert got == INTERNLM_FULL_BYTES
+
+
+@pytest.mark.parametrize("arch,fmt,kv", [
+    ("internlm2-20b", "", 207_618_048), ("internvl2-26b", "q8", 107_053_056)])
+def test_full_depth_kv_bytes_equal_the_reference(arch, fmt, kv):
+    """The card run's serving geometry (4 slots, kv_len 256, chunk 8) at all
+    48 layers: internlm2-20b's dense cache, internvl2-26b's q8 one."""
+    from repro.models.api import get_family as jget_family
+    cfg = configs.get_config(arch, "full").replace(kv_format=fmt)
+    jcfg = jconfigs.get_config(arch, "full").replace(kv_format=fmt)
+    got = get_family(cfg.family).cache_spec(cfg, 4, 256,
+                                            slack=8).cache_bytes()
+    assert got == jget_family(jcfg.family).cache_spec(
+        jcfg, 4, 256, slack=8).cache_bytes()
+    assert got["kv"] == kv
 
 
 def test_serve_cli_on_cpu(capsys):
