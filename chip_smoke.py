@@ -92,11 +92,11 @@ Phases, each printed as JSON lines:
    Huffman codec and back. The trained paper-100m parameters also go
    through the entropy-coded checkpoint (``train.compressed_ckpt``: bytes
    beside f32 and packed, bits per parameter, the host codec's seconds; the
-   embedding, unembedding and first 4 layers, ``CODEC_LAYERS``), and the
+   embedding, unembedding and first 2 layers, ``CODEC_LAYERS``), and the
    loaded tree is served packed at that depth, held to the CPU plain
    path.
 8. frontend (the serving front end) at gemma3-1b full, babsmax64:n4
-   packed, q8 cache, kv_len 1024, 4 slots: a seeded 32-request workload
+   packed, q8 cache, kv_len 1024, 4 slots: a seeded 16-request workload
    (``serve.traffic``, a 128-token shared prefix on 60% of the requests)
    replayed with prefix reuse twice (equal signatures), without reuse (the
    greedy streams held to the reuse run's by the margin rule, one forked
@@ -208,7 +208,41 @@ Phases, each printed as JSON lines:
    128-wide blocks, held against the plain version in the kernel phase at
    paper-100m small's shapes) and its served steps held to the CPU plain
    path.
-16. the kernels summary line, then ``{"ok": true, "device": ...}``.
+16. family_train (training, QAT and the weight Fisher of the other
+   families, at full width, seeded weights): (a) 3 CE steps of B = 1, T =
+   256 under deterministic algorithms for whisper-large-v3 and rwkv6-1.6b
+   through ``launch.train --variant full`` and for zamba2-2.7b (36 of 54
+   layers), qwen2-moe-a2.7b (2) and internvl2-26b (1 layer) through
+   ``train.loop.train``, the depths 80 GB allows (``FAMILY_TRAIN``): s a
+   step, peak device bytes, the ops without a deterministic CUDA form,
+   finite losses; (b) qwen2-moe at 1 layer, its state after step 2 copied
+   to the host and back, step 3 bit for bit (determinism and the state's
+   round trip through host memory; not the checkpoint file, whose 14.3 GB
+   took 80-89 s); at a hold depth (2 layers,
+   whisper 2 + 2, zamba2 one group of 6 and its shared block), in f32
+   with the same weights and batch on the card and the CPU: (c) one CE
+   ``make_train_step`` (loss and grad_norm within 1e-4, every leaf's
+   gradient within 1e-3 relative L2), (d) one babsmax64:int4 distillation
+   step (KL and grad_norm within 1e-3), (e) the Fisher of one T = 256
+   sequence with the same labels (each tensor's mean within 5%); (d) and
+   (e) held to the CPU for whisper, rwkv6 and zamba2 and made on the card
+   alone for qwen2-moe and internvl2-26b (``cpu_holds``); the Eq. 5
+   allocation at 4.0 bits from the card's Fisher packed babsmax64 (widths
+   2-8 per tensor, every layer and expert slice of each packed leaf through
+   ``dequant_matmul`` in bf16 and f32 held to its plain version) and one
+   packed ``apply`` against the dense ``apply`` over the dequantised
+   weights in f32 (the logits rule, and the KL within 5%) and in the
+   served bf16 (the KL within 5%; its logits reading beside the bf16
+   floor, the dense ``apply`` in bf16 against f32); (f) for whisper and zamba2
+   the KV Fisher of ``--kv-format auto`` on both devices (within 5%), then
+   ``launch.serve --kv-format auto`` at full depth under half the all-f32
+   cache, which must choose the CPU statistics' formats and launch
+   ``block_quant`` and ``decode_attention_quant``. The CPU's side runs on
+   a worker thread while the card trains.
+
+CPU replays (``replay_on_cpu``) dequantise each packed weight once
+(``dequant_memo``), with the same bits as dequantising it at every step.
+17. the kernels summary line, then ``{"ok": true, "device": ...}``.
 
 Every count of kernel launches is set to 0 just before a serve run and read
 just after it. Each profile phase also holds every ``decode_attention_quant``
@@ -379,8 +413,8 @@ LAUNCHES_PER_STEP["gemma3-1b hold"] = {
     "decode_attention_quant": GEMMA_HOLD_LAYERS}
 # the entropy-coded checkpoint runs on the trained paper-100m's embedding,
 # unembedding and first CODEC_LAYERS of its 12 layers (the host codec took
-# ~95 s over all 12), served at that depth
-CODEC_LAYERS = 4
+# ~95 s over all 12, 76 s over 4), served at that depth
+CODEC_LAYERS = 2
 LAUNCHES_PER_STEP["paper-100m codec"] = {
     "dequant_matmul": 7 * CODEC_LAYERS + 1}
 # the train_quantise_serve example serves paper-100m small (6 layers, d 256,
@@ -1432,6 +1466,8 @@ def replay_on_cpu(eng, records, card_cache=False, kv_stats=None,
     from repro_torch.serve.engine import alloc_decode_state, params_to
     device = torch.device(device)
     params = params_to(eng.params, device)
+    memo = (dequant_memo(params) if device.type == "cpu"
+            else contextlib.nullcontext())
     state = alloc_decode_state(eng.fam, eng.cfg, eng.B, eng.kv_len,
                                slack=eng.prefill_chunk, device=device)
     state.update({k: v.to(device) for k, v in (state_in or {}).items()})
@@ -1451,7 +1487,7 @@ def replay_on_cpu(eng, records, card_cache=False, kv_stats=None,
     if routes is not None:
         layers.route = route_witness(routes, route_stats)
     try:
-        with torch.inference_mode():
+        with torch.inference_mode(), memo:
             for rec in records:
                 batch = {k: v.to(device) for k, v in rec["batch"].items()}
                 pos = rec["pos"].to(device, torch.int32)
@@ -1496,6 +1532,36 @@ def compare_with_cpu(eng, records, card_cache=False, kv_stats=None,
         n_margin += margin
     check(n_margin > 0, "no high-margin token to compare")
     return worst, n_margin
+
+
+@contextlib.contextmanager
+def dequant_memo(params):
+    """While the context lasts, the plain path dequantises each packed
+    weight of ``params`` once and reuses that f32 tensor in every later
+    step (``dequant_matmul.ref.dequant_weight``, the same bits): a CPU
+    replay otherwise dequantises the whole model again at every step,
+    which was most of its time. Codes outside ``params`` are not kept."""
+    from repro_torch.core.tensor_format import PackedTensor
+    from repro_torch.kernels.dequant_matmul import ref
+    owned = {w.codes.untyped_storage().data_ptr()
+             for _, w in flat_with_paths(params)
+             if isinstance(w, PackedTensor)}
+    dequant, kept = ref.dequant_weight, {}
+
+    def cached(codes, scales, codebook, block=128, bits=8):
+        if codes.untyped_storage().data_ptr() not in owned:
+            return dequant(codes, scales, codebook, block, bits)
+        key = (codes.data_ptr(), tuple(codes.shape), codes.stride(),
+               scales.data_ptr(), codebook.data_ptr(), block, bits)
+        if key not in kept:
+            kept[key] = dequant(codes, scales, codebook, block, bits)
+        return kept[key]
+    ref.dequant_weight = cached
+    try:
+        yield
+    finally:
+        ref.dequant_weight = dequant
+        kept.clear()
 
 
 @contextlib.contextmanager
@@ -2661,10 +2727,10 @@ def train_phase(dev, mods):
 
 
 FRONTEND_KW = dict(batch_slots=4, kv_len=1024, prefill_chunk=8)
-# the replayed workload: 32 requests at 0.5 a step, bodies of 16-96 tokens,
+# the replayed workload: 16 requests at 0.5 a step, bodies of 16-96 tokens,
 # 8-32 new tokens, a 128-token shared "sys" prefix on 60% of them, and a
 # quarter of them at priority 2
-FRONTEND_TRAFFIC = dict(seed=0, n_requests=32, rate=0.5, prompt_len=(16, 96),
+FRONTEND_TRAFFIC = dict(seed=0, n_requests=16, rate=0.5, prompt_len=(16, 96),
                         output_len=(8, 32), prefixes=(("sys", 128, 0.6),),
                         no_prefix_weight=0.4,
                         priorities=((0.0, 0.75), (2.0, 0.25)))
@@ -3036,11 +3102,13 @@ def frontend_phase(dev, mods):
             serve_cli.main, [
                 "--arch", "gemma3-1b", "--variant", "full", "--quantise",
                 SPEC, "--packed", "--kv-format", kv, "--kv-len", "1024",
-                "--slots", "4", "--requests", "32", "--traffic-replay", "0",
+                "--slots", "4", "--requests",
+                str(FRONTEND_TRAFFIC["n_requests"]), "--traffic-replay", "0",
                 "--prefix", "128", "--no-dense-fallback", "--device",
                 "cuda"]))
         mc = report.metrics
-        check(mc["completed"] == 32 and mc["forks"] > 0 and
+        check(mc["completed"] == FRONTEND_TRAFFIC["n_requests"] and
+              mc["forks"] > 0 and
               "TTFT p50/p99" in text and "prefix reuse:" in text and
               not report.scheduler.engine.degraded and
               all(v > 0 for v in launches.values()),
@@ -4358,6 +4426,661 @@ def timed_apply(apply, params, batch, cfg, dev):
     return logits, time.monotonic() - t0
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: training, QAT and the weight Fisher of the other families
+
+# (arch, layers of the train run, layers of the card-vs-CPU holds). A train
+# step holds f32 weights, gradients and two Adam moments (16 B a parameter)
+# and, while ``adam_update`` runs, the new weights and moments (12 B more)
+# and each leaf's f32 temporaries: whisper and rwkv6 fit whole (44 and 47
+# GB); zamba2 fits in 36 of its 54 layers (the 54-layer update asked for
+# more than 80 GB: its stacked in_proj alone is 5.8 GB a copy), qwen2-moe
+# in 2 (61 GB; 4 layers about 88), internvl2-26b in 1 (at 2 it peaked at
+# 64-70 GB alone and ran out of memory late in the script). zamba2's hold
+# is one group of 6 Mamba-2 layers and its shared block.
+FAMILY_TRAIN = ((WHISPER_ARCH, None, 2), (RWKV_ARCH, None, 2),
+                (ZAMBA_ARCH, 36, 6), (MOE_ARCH, 2, 2),
+                (INTERNVL_ARCH, 1, 2))
+FAMILY_TRAIN_STEPS = 3
+FAMILY_TRAIN_SEQ = 256            # B = 1; whisper's 1500 frames, internvl's
+                                  # 256 patches besides
+# qwen2-moe's bitwise resume: 1 layer at full width (its state is 14.3 GB;
+# two copies and a step's temporaries fit beside each other)
+MOE_RESUME_LAYERS = 1
+FAMILY_QAT_SPEC = "babsmax64:int4"
+# intra-op threads of the thread that drives the card in the phase (its
+# host work is copies); the worker making the holds' CPU side takes the
+# rest, so that the two never ask for more threads than the host has cores
+FAMILY_DRIVER_THREADS = 1
+KV_AUTO_ARCHS = (WHISPER_ARCH, ZAMBA_ARCH)
+# the card's sides of the holds hand their CPU sides to the worker in this
+# order: the shortest card side first, so that the worker starts at once,
+# then the longest card sides while it works (the phase run alone on one
+# H100 80GB HBM3 and its 8-core host: card sides of 17 (the first, cold),
+# 27, 24, 10 and 7 s, CPU sides of 21, 18, 11, 29 and 15 s)
+FAMILY_HOLD_ORDER = (WHISPER_ARCH, INTERNVL_ARCH, MOE_ARCH, ZAMBA_ARCH,
+                     RWKV_ARCH)
+
+
+def hold_config(cfg, layers):
+    """``cfg`` at full width and ``layers`` layers (whisper's encoder cut
+    alike), computing in f32 (the holds' bounds, 1e-4 and 1e-3, are f32's)
+    with no rematerialisation (the same values, one forward fewer)."""
+    kw = dict(n_layers=layers, dtype="float32", remat="none")
+    if cfg.family == "whisper":
+        kw["n_enc_layers"] = layers
+    return cfg.replace(**kw)
+
+
+class ThreadHooks:
+    """Stand-ins for ``train.loop.adam_update`` and
+    ``core.fisher._sample_labels`` for the phase, each acting for the
+    thread that armed it alone (the CPU side of the holds runs on a worker
+    thread while the card trains): ``spy`` keeps the gradients a step hands
+    the update and skips it; ``labels`` draws the labels of a logits shape
+    on the CPU from numpy, the same on either device. Other threads get
+    the originals."""
+
+    def __init__(self):
+        import threading
+        from repro_torch.core import fisher
+        from repro_torch.train import loop
+        self.local = threading.local()
+        self.loop, self.fisher = loop, fisher
+        self.update, self.sample = loop.adam_update, fisher._sample_labels
+
+    def __enter__(self):
+        self.loop.adam_update = self._update
+        self.fisher._sample_labels = self._sample
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.adam_update = self.update
+        self.fisher._sample_labels = self.sample
+
+    def _update(self, grads, opt_state, params, *a, **kw):
+        seen = getattr(self.local, "grads", None)
+        if seen is None:
+            return self.update(grads, opt_state, params, *a, **kw)
+        seen.append(grads)
+        return params, opt_state
+
+    def _sample(self, logits, generator):
+        seed = getattr(self.local, "seed", None)
+        if seed is None:
+            return self.sample(logits, generator)
+        shape = tuple(logits.shape[:-1])
+        y = np.random.default_rng(seed).integers(0, logits.shape[-1], shape)
+        return torch.from_numpy(y).to(logits.device)
+
+    def spied_step(self, step, *args):
+        """``step(*args)`` stopped at ``adam_update``: (its metrics as
+        floats, the clipped gradients it hands the update). What the holds
+        compare comes before the update, which (a)'s runs make."""
+        self.local.grads = []
+        try:
+            _, m = step(*args)
+            return ({k: float(v) for k, v in m.items()},
+                    self.local.grads[0])
+        finally:
+            self.local.grads = None
+
+    def pinned(self, fn, seed):
+        self.local.seed = seed
+        try:
+            return fn()
+        finally:
+            self.local.seed = None
+
+
+def family_batch(cfg, dev, step=0):
+    """``make_batch_fn``'s batch ``step`` of B = 1, T = ``FAMILY_TRAIN_SEQ``
+    (with whisper's frames or internvl's patches) on ``dev``."""
+    from repro_torch.data.pipeline import make_batch_fn
+    b = make_batch_fn(cfg, seq=FAMILY_TRAIN_SEQ, batch=1, seed=0)(step)
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def train_run(arch, layers, dev):
+    """(a): ``FAMILY_TRAIN_STEPS`` CE steps of ``arch`` under deterministic
+    algorithms, through ``launch.train`` at full depth (``layers`` None) or
+    ``train.loop.train`` at ``layers`` layers; s a step, peak device bytes
+    beside 16 and 28 B a parameter, the ops without a deterministic CUDA
+    form."""
+    from repro_torch import configs
+    from repro_torch.data.pipeline import make_batch_fn
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.api import count_params, get_family
+    from repro_torch.train import AdamConfig, TrainConfig, train
+    cfg = configs.get_config(arch, "full")
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    n_params = count_params(get_family(cfg.family).param_specs(cfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    if layers is None:
+        ((state, hist), _), nondet = deterministic_runs(lambda: quiet(
+            train_cli.main, [
+                "--arch", arch, "--variant", "full", "--steps",
+                str(FAMILY_TRAIN_STEPS), "--batch", "1", "--seq",
+                str(FAMILY_TRAIN_SEQ), "--log-every", "1", "--seed", "0",
+                "--device", "cuda"]))
+    else:
+        tc = TrainConfig(steps=FAMILY_TRAIN_STEPS, lr=3e-3, warmup=10,
+                         log_every=1, seed=0)
+        (state, hist), nondet = deterministic_runs(lambda: train(
+            cfg, tc, AdamConfig(), make_batch_fn(
+                cfg, seq=FAMILY_TRAIN_SEQ, batch=1, seed=0), device=dev))
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    del state
+    torch.cuda.empty_cache()
+    losses = [h["loss"] for h in hist]
+    check(len(losses) == FAMILY_TRAIN_STEPS and
+          all(np.isfinite(v) for v in losses + [h["grad_norm"]
+                                                for h in hist]),
+          f"{arch} train: losses {losses}")
+    return dict(layers=cfg.n_layers, params=n_params, losses=losses,
+                grad_norms=[h["grad_norm"] for h in hist],
+                s_per_step=[h["s_per_step"] for h in hist], run_s=secs,
+                peak_mem_bytes=peak,
+                state_bytes_16=16 * n_params, update_bytes_28=28 * n_params,
+                nondeterministic_ops=nondet)
+
+
+def moe_resume(dev):
+    """(b): qwen2-moe at ``MOE_RESUME_LAYERS`` layers of full width under
+    deterministic algorithms: two CE steps, the state copied to the host
+    as a checkpoint holds it (f32 weights and moments, the step), step 3
+    from the live state and again from the copy put back on the card: its
+    loss, the parameters and both moments bit for bit. The npz round trip
+    of this state (14.3 GB) is exact in f32, as the paper-100m resume
+    holds, and took 80-89 s on the card's 8-core host, which
+    this phase cannot pay; the copy goes to page-locked memory (pageable,
+    it took 19 s)."""
+    from repro_torch import configs
+    from repro_torch.core.plan import map_with_paths
+    from repro_torch.train import AdamConfig, TrainConfig, loop
+    from repro_torch.train.optimizer import cosine_schedule
+    cfg = configs.get_config(MOE_ARCH, "full").replace(
+        n_layers=MOE_RESUME_LAYERS)
+    step = loop.make_train_step(cfg, AdamConfig(), TrainConfig(),
+                                cosine_schedule(3e-3, FAMILY_TRAIN_STEPS, 10))
+
+    def run():
+        state = loop.init_state(0, cfg, AdamConfig(), device=dev)
+        losses = []
+        for i in range(FAMILY_TRAIN_STEPS):
+            if i == FAMILY_TRAIN_STEPS - 1:
+                saved = map_with_paths(lambda _, x: torch.empty(
+                    x.shape, dtype=x.dtype, pin_memory=x.is_cuda).copy_(x),
+                    state)
+            state, m = step(state, family_batch(cfg, dev, i))
+            losses.append(float(m["loss"]))
+        back = map_with_paths(lambda _, x: x.to(dev), saved)
+        del saved
+        again, m = step(back, family_batch(cfg, dev, i))
+        del back
+        a, b = (dict(flat_with_paths(s)) for s in (state, again))
+        same = sum(torch.equal(a[n], b[n]) for n in a)
+        return losses, float(m["loss"]), same, len(a)
+    t0 = time.monotonic()
+    (losses, resumed, same, n), nondet = deterministic_runs(run)
+    torch.cuda.empty_cache()
+    check(resumed == losses[-1] and same == n and not nondet,
+          f"{MOE_ARCH} resume is not bitwise: step 3 loss {resumed} vs "
+          f"{losses[-1]}, {same} of {n} tensors equal, nondeterministic "
+          f"ops {nondet}")
+    return dict(layers=MOE_RESUME_LAYERS, losses=losses,
+                resumed_loss=resumed, bitwise=True, equal_tensors=same,
+                seconds=time.monotonic() - t0, nondeterministic_ops=nondet)
+
+
+def hold_side(hooks, hold, params, batch, plan, holds):
+    """One device's side of the holds named in ``holds`` on ``params``:
+    "ce", one CE ``make_train_step`` (its metrics and clipped gradients, on
+    the CPU); "qat", one distillation step of the ``plan`` student against
+    the same weights (its KL and gradient norm); "fisher", the Fisher of
+    the one sequence and its per-tensor statistics; "kv", the KV Fisher as
+    ``launch.serve --kv-format auto`` calls it; labels by
+    ``hooks.pinned``. Returns (those, seconds of each)."""
+    from repro_torch.core import fisher
+    from repro_torch.models.api import get_family
+    from repro_torch.train import loop
+    from repro_torch.train.optimizer import AdamConfig
+    fam = get_family(hold.family)
+    dev = flat_with_paths(params)[0][1].device
+    secs, t0 = {}, time.monotonic()
+
+    def lap(name):
+        nonlocal t0
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs[name] = time.monotonic() - t0
+        t0 = time.monotonic()
+    state = {"params": params,
+             "opt": {"step": torch.zeros((), dtype=torch.int32, device=dev)}}
+    out = {}
+    if "ce" in holds:
+        ce = loop.make_train_step(hold, AdamConfig(), loop.TrainConfig(),
+                                  lambda s: 1e-3)
+        out["ce"], grads = hooks.spied_step(ce, state, batch)
+        out["grads"] = {n: g.to("cpu", copy=True)
+                        for n, g in flat_with_paths(grads)}
+        del grads
+        lap("ce_step")
+    if "qat" in holds:
+        qat = loop.make_train_step(hold, AdamConfig(b1=0.9, b2=0.95),
+                                   loop.TrainConfig(), lambda s: 1e-4,
+                                   qat_plan=plan, distill=True)
+        out["qat"], _ = hooks.spied_step(qat, state, batch, params)
+        lap("qat_step")
+    if "fisher" in holds:
+        fish = hooks.pinned(lambda: fisher.estimate_diag_fisher(
+            lambda p, b: fam.apply(p, b, hold), params, [batch], None), 5)
+        out["fisher"] = fisher.per_tensor_stats(params, fish)
+        del fish
+        lap("fisher")
+    if "kv" in holds:
+        out["kv"] = hooks.pinned(lambda: fisher.estimate_kv_fisher(
+            hold, params, batch_size=2, kv_len=32), 7)
+        lap("kv_fisher")
+    return out, secs
+
+
+def packed_leaf_errors(packed, mods, dev):
+    """Each packed leaf of an allocated plan (its own width, 2 to 8 bits,
+    byte codes above 4), every slice of its lead dims (layers, experts),
+    through ``dequant_matmul`` on 256 rows of bf16 and of f32 (the
+    tensor-core and the CUDA-core kernel), held to the plain version by
+    the kernel phase's rule; returns each leaf's max error ÷ max|y|. Not
+    counted."""
+    from repro_torch.core.tensor_format import PackedTensor
+    from repro_torch.kernels.dequant_matmul import ref
+    kern = mods["dequant_matmul"].dequant_matmul_cuda
+    gen = torch.Generator(device=dev).manual_seed(11)
+    errs = {}
+    for name, w in flat_with_paths(packed):
+        if not isinstance(w, PackedTensor):
+            continue
+        lead = w.codes.shape[:-2]
+        codes = w.codes.reshape(-1, *w.codes.shape[-2:])
+        scales = w.scales.reshape(-1, *w.scales.shape[-2:])
+        errs[name] = 0.0
+        for i in range(codes.shape[0]):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn((256, scales.shape[-2]), generator=gen,
+                                device=dev).to(dtype)
+                args = (x, codes[i].contiguous(), scales[i].contiguous(),
+                        w.codebook(), w.block, w.bits)
+                y, y_plain = kern(*args), ref.dequant_matmul_ref(*args)
+                scale = float(y_plain.float().abs().max())
+                torch.testing.assert_close(
+                    y.float(), y_plain.float(), rtol=1.6e-2,
+                    atol=1e-2 * scale, msg=lambda m: (
+                        f"{name} slice {i} of {tuple(lead)} ({w.bits}-bit "
+                        f"codes, {tuple(codes.shape[1:])}, {dtype}): {m}"))
+                errs[name] = max(errs[name], float(
+                    (y.float() - y_plain.float()).abs().max()) / scale)
+    return errs
+
+
+def allocated_apply(hold, dtype, params, stats, batch, mods):
+    """(e)'s allocation: the Eq. 5 bits at 4.0 (2 to 8) from the card's
+    Fisher, its babsmax64 plan packed (each packed leaf's kernels held to
+    their plain version), and one packed ``apply`` against the dense
+    ``apply`` over the dequantised weights in each of two compute dtypes:
+    the hold's f32 (the CUDA-core kernel), held by the logits rule and the
+    top-k KL to the f32 model's within 5%; the served ``dtype`` (the
+    tensor-core kernel), held by that KL. In bf16 the logits rule does not
+    hold the kernel alone: the dense ``apply`` in bf16 against the same
+    in f32 (``bf16_floor_max_rel_logit_err``) shows how far bf16 rounding
+    alone moves this model's logits, and is reported beside the packed
+    reading."""
+    from repro_torch.core import build_allocated_plan, metrics
+    from repro_torch.core.allocation import allocate_bits, average_bits
+    from repro_torch.core.tensor_format import PackedTensor
+    from repro_torch.models.api import get_family
+    fam = get_family(hold.family)
+    alloc = allocate_bits(stats, target_bits=4.0, b_min=2, b_max=8)
+    avg = average_bits(alloc, stats)
+    check(abs(avg - 4.0) <= 1e-3, f"{hold.name} allocation averages {avg}")
+    plan = build_allocated_plan(params, alloc, "babsmax64")
+    qparams = plan.quantise(params)
+    served_cfg = hold.replace(dtype=dtype)
+    packed = plan.pack_quantised(qparams, fam.pack_layouts(served_cfg))
+    deq = plan.dequantise(qparams)
+    del qparams
+    packed_bits = {n: alloc[n] for n, x in flat_with_paths(packed)
+                   if isinstance(x, PackedTensor)}
+    check(len(set(round(b, 6) for b in packed_bits.values())) > 1,
+          f"{hold.name}: the packed tensors share one width {packed_bits}")
+    leaf_err = packed_leaf_errors(packed, mods, batch["tokens"].device)
+    out = dict(average_bits=avg, packed_tensors=len(packed_bits),
+               packed_bits_min=min(packed_bits.values()),
+               packed_bits_max=max(packed_bits.values()),
+               packed_widths=sorted(set(round(b, 2)
+                                        for b in packed_bits.values())),
+               kernel_leaf_max_err=max(leaf_err.values()),
+               kernel_leaf_worst=max(leaf_err, key=leaf_err.get))
+    with torch.no_grad():
+        ref = fam.apply(params, batch, hold)
+        dense = {}
+        for key, cfg in (("f32", hold), ("served", served_cfg)):
+            fam.apply(packed, batch, cfg)                 # warm the tables
+            logits, launches = served(
+                mods, lambda: fam.apply(packed, batch, cfg))
+            want = dense[key] = fam.apply(deq, batch, cfg)
+            check(launches["dequant_matmul"] > 0 and
+                  (launches["dequant_matmul_t"] > 0) == hold.tie_embeddings,
+                  f"{hold.name} packed apply ({key}) launched {launches}")
+            kl_packed = float(metrics.mean_topk_kl(ref, logits, k=128))
+            kl_deq = float(metrics.mean_topk_kl(ref, want, k=128))
+            check(abs(kl_packed - kl_deq) <= 0.05 * kl_deq,
+                  f"{hold.name} packed KL ({key}) {kl_packed} vs "
+                  f"dequantised {kl_deq}")
+            if key == "f32":
+                rel, margin = hold_logits(
+                    logits, want, f"{hold.name} packed vs dequantised dense "
+                    "apply, f32")
+                check(margin > 0, f"{hold.name}: no high-margin position")
+                out.update(f32_max_rel_logit_err=rel,
+                           f32_margin_positions=margin)
+            else:
+                out["served_dtype"] = str(dtype).split(".")[-1]
+                out["served_max_rel_logit_err"] = float(
+                    ((logits - want).abs().amax(-1) /
+                     want.abs().amax(-1)).max())
+            out[f"{key}_launches"] = launches
+            out[f"{key}_kl_packed"] = kl_packed
+            out[f"{key}_kl_dequantised"] = kl_deq
+            out[f"{key}_kl_rel_diff"] = abs(kl_packed - kl_deq) / kl_deq
+            del logits, want
+        got, want = dense["served"].float(), dense["f32"]
+        out["bf16_floor_max_rel_logit_err"] = float(
+            ((got - want).abs().amax(-1) / want.abs().amax(-1)).max())
+    del packed, deq, ref, dense
+    return out
+
+
+def card_hold(hooks, arch, layers, dev, mods):
+    """The card's side of the holds at ``layers`` layers of full width in
+    f32 (``hold_side``: all of them), then the allocation and its packed
+    ``apply``; returns the CPU side's job: the card's readings, the
+    weights and batch on the CPU, the QAT plan, the holds the CPU makes
+    (``cpu_holds``)."""
+    from repro_torch import configs
+    from repro_torch.models.api import get_family
+    from repro_torch.serve.engine import params_to
+    from repro_torch.train.qat import qat_plan_for
+    full = configs.get_config(arch, "full")
+    hold = hold_config(full, layers)
+    fam = get_family(hold.family)
+    plan = qat_plan_for(fam.param_specs(hold), FAMILY_QAT_SPEC)
+    t0 = time.monotonic()
+    params = fam.init(hold, seed=0, device=dev)
+    batch = family_batch(hold, dev)
+    card, secs = hold_side(hooks, hold, params, batch, plan,
+                           ("ce", "qat", "fisher", "kv")
+                           if arch in KV_AUTO_ARCHS else
+                           ("ce", "qat", "fisher"))
+    t1 = time.monotonic()
+    card["allocation"] = allocated_apply(hold, full.dtype, params,
+                                         card["fisher"], batch, mods)
+    secs["allocation"] = time.monotonic() - t1
+    job = dict(arch=arch, hold=hold, plan=plan, card=card,
+               params=params_to(params, torch.device("cpu")),
+               batch={k: v.cpu() for k, v in batch.items()},
+               holds=cpu_holds(arch))
+    del params, batch
+    torch.cuda.empty_cache()
+    secs["total"] = time.monotonic() - t0
+    card["seconds"] = secs
+    return job
+
+
+def cpu_holds(arch):
+    """The holds the CPU makes for ``arch``: all of them, but for qwen2-moe
+    and internvl2-26b the CE step alone. The QAT step and the Fisher are
+    the same code in every family (``fake_quant_ste`` over the plan, the
+    sampled-label loss and its accumulator), held on the CPU for whisper,
+    rwkv6 and zamba2; at the full width of those two, whose embedding
+    tables hold 0.62 and 1.14 B parameters, they took about 65 and 90 s
+    on the card's 8-core host, more than the script can pay. The card
+    makes them all the same (``card_hold``)."""
+    if arch in (MOE_ARCH, INTERNVL_ARCH):
+        return ("ce",)
+    return ("ce", "qat", "fisher", "kv") if arch in KV_AUTO_ARCHS else (
+        "ce", "qat", "fisher")
+
+
+def cpu_hold(hooks, job, threads):
+    """The CPU's side of one family's holds (``hold_side``) on the worker
+    thread, on ``threads`` intra-op threads of its own, held at once to the
+    card's (``hold_readings``), so that only the readings outlive the job;
+    returns (them, the CPU's KV Fisher)."""
+    torch.set_num_threads(threads)
+    t0 = time.monotonic()
+    card = job.pop("card")
+    cpu, secs = hold_side(hooks, job.pop("hold"), job.pop("params"),
+                          job.pop("batch"), job.pop("plan"),
+                          job.pop("holds"))
+    secs["total"] = time.monotonic() - t0
+    cpu["seconds"] = secs
+    return hold_readings(job.pop("arch"), card, cpu), cpu.get("kv")
+
+
+def rel_to(got, want):
+    return abs(got - want) / abs(want) if want else (
+        0.0 if got == want else math.inf)
+
+
+def hold_readings(arch, card, cpu):
+    """(c), (d), (e): the card's readings against the CPU's that the CPU
+    made, each within its bound; returns the line's fields (the card's
+    readings of the holds the CPU did not make beside them)."""
+    rel = {}
+    for name, key, what, tol in (("loss", "ce", "loss", 1e-4),
+                                 ("grad_norm", "ce", "grad_norm", 1e-4),
+                                 ("qat_kl", "qat", "loss", 1e-3),
+                                 ("qat_grad_norm", "qat", "grad_norm", 1e-3)):
+        if key in cpu:
+            rel[name] = rel_to(card[key][what], cpu[key][what])
+            check(rel[name] <= tol, f"{arch} {name}: card {card[key][what]}"
+                  f" vs CPU {cpu[key][what]} ({rel[name]} > {tol})")
+    g_card, g_cpu = card.pop("grads"), cpu.pop("grads")
+    check(g_card.keys() == g_cpu.keys(), f"{arch}: gradient leaves differ")
+    grad = {}
+    for n, g in g_cpu.items():
+        num = float(torch.linalg.vector_norm(g_card[n] - g))
+        den = float(torch.linalg.vector_norm(g))
+        grad[n] = num / den if den else (0.0 if num == 0 else math.inf)
+    worst = max(grad, key=grad.get)
+    check(grad[worst] <= 1e-3, f"{arch} gradient of {worst}: relative L2 "
+          f"{grad[worst]} > 1e-3")
+    out = dict(loss=card["ce"]["loss"], grad_norm=card["ce"]["grad_norm"],
+               qat_spec=FAMILY_QAT_SPEC, qat_kl=card["qat"]["loss"],
+               qat_grad_norm=card["qat"]["grad_norm"],
+               cpu_holds=sorted(k for k in ("ce", "qat", "fisher", "kv")
+                                if k in cpu),
+               rel_err=rel, grad_max_rel_l2=grad[worst],
+               grad_worst_leaf=worst, grad_leaves=len(grad),
+               allocation=card["allocation"],
+               card_seconds=card["seconds"], cpu_seconds=cpu["seconds"])
+    if "fisher" in cpu:
+        fish = {n: rel_to(card["fisher"][n]["fisher_mean"],
+                          s["fisher_mean"]) for n, s in cpu["fisher"].items()}
+        worst_f = max(fish, key=fish.get)
+        check(fish[worst_f] <= 0.05, f"{arch} Fisher of {worst_f}: card vs "
+              f"CPU {fish[worst_f]} > 5%")
+        out.update(fisher_max_rel_diff=fish[worst_f],
+                   fisher_worst_tensor=worst_f)
+    return out
+
+
+def kv_auto_serve(arch, dev, mods):
+    """(f)'s serve: ``launch.serve --kv-format auto`` at full depth,
+    packed, under half the all-f32 cache of its geometry, 4 requests
+    (whisper's with frames on two); it must launch ``block_quant`` and
+    ``decode_attention_quant``. Returns (its fields, its launches)."""
+    from repro_torch import configs
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.api import get_family
+    from repro_torch.serve.engine import Request
+    cfg = configs.get_config(arch, "full")
+    fam = get_family(cfg.family)
+    slots, kv_len, chunk = 4, 256, 8
+    spec = fam.cache_spec(cfg, slots, kv_len, slack=chunk)
+    numel = {f"g{g.index}": 2 * len(g.layers) * slots * g.length *
+             spec.kv_heads * spec.head_dim for g in spec.groups}
+    budget = 4 * sum(numel.values()) // 2
+    argv = ["--arch", arch, "--variant", "full", "--quantise", SPEC,
+            "--packed", "--kv-format", "auto", "--kv-budget-bytes",
+            str(budget), "--kv-len", str(kv_len), "--slots", str(slots),
+            "--prefill-chunk", str(chunk), "--requests", "4", "--max-new",
+            "8", "--no-dense-fallback", "--device", "cuda"]
+    make = serve_cli.Request
+    if cfg.family == "whisper":
+        from repro_torch.data.pipeline import make_batch_fn
+        frames = make_batch_fn(cfg, seq=8, batch=2, seed=0)(0)["frames"]
+        serve_cli.Request = lambda **kw: Request(
+            frames=frames[kw["rid"] // 2] if kw["rid"] % 2 == 0 else None,
+            **kw)
+    t0 = time.monotonic()
+    try:
+        (done, text), launches = served(mods, lambda: quiet(serve_cli.main,
+                                                            argv))
+    finally:
+        serve_cli.Request = make
+    line = next(ln for ln in text.splitlines() if "kv auto allocation" in ln)
+    check(len(done) == 4 and all(len(g.tokens) == 8 and not g.failed
+                                 for g in done) and
+          "degraded to dense" not in text,
+          f"{arch} --kv-format auto: requests did not all finish")
+    check(all(launches[k] > 0 for k in ("dequant_matmul", "block_quant",
+                                        "decode_attention_quant")),
+          f"{arch} --kv-format auto launched {launches}")
+    torch.cuda.empty_cache()
+    return dict(budget_bytes=budget, all_f32_bytes=2 * budget, numel=numel,
+                formats=line.split(": ")[1].split(" ")[0].split(","),
+                launches=launches, serve_s=time.monotonic() - t0,
+                tokens={g.rid: g.tokens for g in done}), launches
+
+
+def kv_readings(arch, served_run, card, cpu):
+    """(f): the card's KV Fisher against the CPU's at hold depth (within
+    5%), and the formats ``--kv-format auto`` chose at full depth against
+    those the CPU's statistics give under the same budget and geometry."""
+    from repro_torch import configs
+    from repro_torch.core.allocation import allocate_kv_formats
+    check(list(card) == list(cpu), f"{arch} KV groups {list(card)}")
+    rel = {}
+    for g in cpu:
+        check(card[g]["numel"] == cpu[g]["numel"], f"{arch} {g} numel")
+        for k in ("rms", "fisher_mean"):
+            rel[f"{g}.{k}"] = rel_to(card[g][k], cpu[g][k])
+            check(rel[f"{g}.{k}"] <= 0.05, f"{arch} KV Fisher {g} {k}: card "
+                  f"{card[g][k]} vs CPU {cpu[g][k]}")
+    stats = {g: dict(s, numel=served_run["numel"][g]) for g, s in cpu.items()}
+    want = allocate_kv_formats(stats, served_run["budget_bytes"],
+                               configs.get_config(arch, "full").hd)
+    want = [want[g] for g in sorted(want, key=lambda g: int(g[1:]))]
+    check(served_run["formats"] == want and "f32" not in want,
+          f"{arch} --kv-format auto chose {served_run['formats']}, the "
+          f"CPU's Fisher {want}")
+    return dict(served_run, card_stats=card, cpu_stats=cpu, rel_err=rel,
+                cpu_formats=want)
+
+
+def family_train_phase(dev, mods):
+    """Training, QAT and the weight Fisher at full width for whisper-
+    large-v3 and rwkv6-1.6b (full depth), zamba2-2.7b (36 layers),
+    qwen2-moe-a2.7b (2) and internvl2-26b (1): (a) 3 CE steps of B = 1,
+    T = 256 each; (b) qwen2-moe's bitwise resume; (c) one CE step on the
+    card against the CPU (loss and grad_norm within 1e-4, every leaf's
+    gradient within 1e-3 relative L2); (d) one QAT distillation step (KL
+    and grad_norm within 1e-3); (e) the Fisher (each tensor's mean within
+    5%), its Eq. 5 allocation packed and applied; (f) ``--kv-format auto``
+    for whisper and zamba2. (d) and (e) are held to the CPU for whisper,
+    rwkv6 and zamba2 (``cpu_holds``). The CPU's side of each hold runs on
+    a worker thread (``FAMILY_DRIVER_THREADS`` of the host's intra-op
+    threads left to the card's driver), the costliest first; the card
+    hands it the next family's hold only when it has
+    nothing queued (host memory holds one running and one waiting), and
+    trains, resumes and serves meanwhile. Returns the launches of its
+    packed runs."""
+    from concurrent.futures import ThreadPoolExecutor
+    t_phase = time.monotonic()
+    threads = torch.get_num_threads()
+    runs, cards, cpus = [], {}, {}
+    out = {arch: {} for arch, _, _ in FAMILY_TRAIN}
+    holds = sorted(FAMILY_TRAIN, key=lambda f: FAMILY_HOLD_ORDER.index(f[0]))
+    card_work = [("resume", MOE_ARCH, None)] if MOE_ARCH in out else []
+    card_work += [("train", arch, layers) for arch, layers, _ in holds]
+    card_work += [("kv_auto", arch, None) for arch in KV_AUTO_ARCHS
+                  if arch in out]
+    timeline = []
+    torch.set_num_threads(min(threads, FAMILY_DRIVER_THREADS))
+    try:
+        with ThreadHooks() as hooks, ThreadPoolExecutor(1) as pool:
+            while holds or card_work:
+                t0 = time.monotonic()
+                queued = sum(not f.running() and not f.done()
+                             for f in cpus.values())
+                if holds and not queued:
+                    arch, _, hold_layers = holds.pop(0)
+                    job = card_hold(hooks, arch, hold_layers, dev, mods)
+                    cards[arch] = {k: job["card"][k]
+                                   for k in ("allocation", "kv")
+                                   if k in job["card"]}
+                    runs += [{"launches": cards[arch]["allocation"][k]}
+                             for k in ("f32_launches", "served_launches")]
+                    cpus[arch] = pool.submit(
+                        cpu_hold, hooks, job,
+                        max(1, threads - FAMILY_DRIVER_THREADS))
+                    del job
+                    what = ("hold", arch)
+                elif card_work:
+                    what, arch, layers = card_work.pop(0)
+                    if what == "resume":
+                        out[arch]["resume"] = moe_resume(dev)
+                    elif what == "train":
+                        out[arch]["train"] = train_run(arch, layers, dev)
+                    else:
+                        out[arch]["kv_auto"], launches = kv_auto_serve(
+                            arch, dev, mods)
+                        runs.append({"launches": launches})
+                    what = (what, arch)
+                else:
+                    next(f for f in cpus.values() if not f.done()).result()
+                    what = ("wait", "cpu")
+                timeline.append((*what, time.monotonic() - t0))
+            emit(phase="timing", family_card_end_s=time.monotonic() -
+                 t_phase, timeline=timeline)
+            for arch, _, hold_layers in FAMILY_TRAIN:
+                readings, cpu_kv = cpus.pop(arch).result()
+                out[arch]["hold"] = dict(hold_layers=hold_layers,
+                                         compute_dtype="float32", **readings)
+                if arch in KV_AUTO_ARCHS:
+                    out[arch]["kv_auto"] = kv_readings(
+                        arch, out[arch]["kv_auto"], cards[arch]["kv"],
+                        cpu_kv)
+                emit(phase="family_train", arch=arch, **out[arch])
+    finally:
+        torch.set_num_threads(threads)
+    emit(phase="timing", family_train_phase_s=time.monotonic() - t_phase,
+         host_peak_rss_bytes=host_peak_rss())
+    return runs
+
+
+def host_peak_rss():
+    """The process's peak resident bytes (``ru_maxrss``)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
 def device_line():
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -4689,11 +5412,14 @@ def main() -> int:
     emit(phase="timing", multidevice_end_s=time.monotonic() - t_start)
     example_runs = examples_phase(dev, mods)
     emit(phase="timing", examples_end_s=time.monotonic() - t_start)
+    family_runs = family_train_phase(dev, mods)
+    emit(phase="timing", family_train_end_s=time.monotonic() - t_start)
 
     line = summary(rows, [paper, deepseek, internlm, *gemma, *alloc_runs,
                           *train_runs, *frontend_runs, *moe_runs,
                           *whisper_runs, *internvl_runs, *rwkv_runs,
-                          *zamba_runs, *multidevice_runs, *example_runs])
+                          *zamba_runs, *multidevice_runs, *example_runs,
+                          *family_runs])
     emit(phase="timing", total_s=time.monotonic() - t_start)
     emit(kernels=line)
     emit(ok=True, device={"platform": "gpu",

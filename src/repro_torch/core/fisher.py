@@ -17,12 +17,19 @@ float64 host accumulation) and the KV-cache variant of the estimator that
 """
 from __future__ import annotations
 
+import threading
 from typing import Callable, Iterable
 
 import numpy as np
 import torch
 
 from .plan import flat_with_paths, map_with_paths
+
+
+# ``allow_mutation_on_saved_tensors`` keeps its state for the whole process:
+# a second thread entering it while one is inside fails ("contexts cannot
+# be nested"), so ``estimate_kv_fisher`` takes its graphs one at a time
+_KV_GRAPH = threading.Lock()
 
 
 def _sample_labels(logits: torch.Tensor, generator) -> torch.Tensor:
@@ -54,19 +61,29 @@ class TwoStageAccumulator:
     """Accumulate ``flush_every`` updates in a ``device_dtype`` buffer on
     each leaf's device, then fold into a float64 host buffer (§D: bf16
     updates are swamped after O(2^8) steps, so long-run accumulation must be
-    wider). ``template`` and every update are params-shaped trees."""
+    wider). ``template`` and every update are params-shaped trees.
+
+    ``lazy_host=True`` makes the host buffers at the first fold, and
+    ``mean`` of sums never folded then takes the f64 arithmetic on the
+    leaves' devices, with the same bits as the host's: a sum that fits one
+    device buffer pays for no host copy of the model in f64."""
 
     def __init__(self, template, device_dtype=torch.float32,
-                 flush_every: int = 64):
+                 flush_every: int = 64, lazy_host: bool = False):
         self.template = template
         self.device_dtype = device_dtype
         self.flush_every = flush_every
         leaves = flat_with_paths(template)
         self._dev = {p: torch.zeros(tuple(x.shape), dtype=device_dtype,
                                     device=x.device) for p, x in leaves}
-        self._host = {p: np.zeros(tuple(x.shape), np.float64)
-                      for p, x in leaves}
+        self._host = {} if lazy_host else self._zeros()
         self._pending = 0
+
+    def _zeros(self):
+        # zeroed by torch's threads (numpy's lazy zero pages fault in one
+        # at a time on the first fold)
+        return {p: torch.zeros(tuple(x.shape), dtype=torch.float64).numpy()
+                for p, x in self._dev.items()}
 
     def add(self, update):
         for p, u in flat_with_paths(update):
@@ -78,15 +95,40 @@ class TwoStageAccumulator:
     def flush(self):
         if self._pending == 0:
             return
+        if not self._host:
+            self._host = self._zeros()
         for p, d in self._dev.items():
-            self._host[p] += d.float().cpu().numpy()   # f32 -> f64, exact
+            # f32 -> f64 (exact) and the f64 sum, in torch's threads: the
+            # numpy fold took ~2 s a GB of updates on one core
+            torch.from_numpy(self._host[p]).add_(d.float().cpu())
             d.zero_()
         self._pending = 0
 
     def value(self):
         """The float64 host sums, as a tree of numpy arrays."""
         self.flush()
+        if not self._host:
+            self._host = self._zeros()
         return map_with_paths(lambda p, _: self._host[p], self.template)
+
+    def mean(self, n: int):
+        """Each leaf's sum ÷ ``n``, rounded once to f32 (new CPU tensors;
+        the sums stay as they are). With nothing folded yet the f64 sum is
+        the device buffer's value (0 + x = x: a buffer that starts at +0
+        never holds -0), and it is divided on the device, by a tensor: CUDA
+        multiplies by the reciprocal of a Python number, which may differ
+        from the host's quotient."""
+        if self._host:
+            def on_host(_, f):
+                out = torch.empty(f.shape, dtype=torch.float32)
+                return torch.div(torch.from_numpy(f), n, out=out)
+            return map_with_paths(on_host, self.value())
+
+        def on_device(p, _):
+            d = self._dev[p].to(torch.float64, copy=True)
+            div = torch.tensor(float(n), dtype=torch.float64, device=d.device)
+            return d.div_(div).float().cpu()
+        return map_with_paths(on_device, self.template)
 
 
 def _sq_grads(apply_fn, params, batch, rng):
@@ -126,7 +168,8 @@ def estimate_diag_fisher(
     diagonal Fisher F_ii ≈ (1/(M·L)) Σ_m Σ_p (∇ log p(ŷ|x))² (Eq. 8).
     ``apply_fn(params, batch)`` gives logits; ``rng`` is a
     ``torch.Generator`` on the params' device."""
-    acc = TwoStageAccumulator(params, device_dtype=device_dtype)
+    acc = TwoStageAccumulator(params, device_dtype=device_dtype,
+                              lazy_host=True)
     n_tokens = 0
     for i, batch in enumerate(batches):
         if max_batches is not None and i >= max_batches:
@@ -135,10 +178,7 @@ def estimate_diag_fisher(
         tok = batch[min(batch)]
         n_tokens += int(np.prod(tuple(tok.shape[:2])))
 
-    def scale(_, f):
-        np.divide(f, max(n_tokens, 1), out=f)
-        return torch.from_numpy(f.astype(np.float32))
-    return map_with_paths(scale, acc.value())
+    return acc.mean(max(n_tokens, 1))
 
 
 def estimate_kv_fisher(cfg, params, *, batch_size: int = 2, kv_len: int = 32,
@@ -189,7 +229,8 @@ def estimate_kv_fisher(cfg, params, *, batch_size: int = 2, kv_len: int = 32,
     for _ in range(samples):
         leaves = {k: state[k].detach().clone().requires_grad_(True)
                   for k in cache_keys}
-        with torch.autograd.graph.allow_mutation_on_saved_tensors():
+        with _KV_GRAPH, \
+                torch.autograd.graph.allow_mutation_on_saved_tensors():
             st = dict(state, **{k: x.clone() for k, x in leaves.items()})
             logits, _ = fam.decode_step(params, st, {"tokens": tok}, cfg)
             row = logits[:, -1].float()
@@ -230,6 +271,7 @@ def per_tensor_stats(params, fisher):
         stats[name] = dict(
             numel=int(p.numel()),
             rms=float(torch.sqrt(torch.mean(p ** 2) + 1e-30)),
-            fisher_mean=float(torch.as_tensor(fish[name]).double().mean()),
+            fisher_mean=float(torch.as_tensor(fish[name]).mean(
+                dtype=torch.float64)),
         )
     return stats

@@ -244,6 +244,44 @@ def test_build_allocated_plan(arch_params):
 # the two-stage accumulator
 
 
+@pytest.mark.parametrize("lazy", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_accumulator_mean_is_the_host_quotient(dtype, lazy):
+    """``mean`` divides the f64 sums and rounds once to f32. With lazy host
+    buffers and nothing folded it divides the device buffers in f64, with
+    the bits of the host's quotient (a -0 update included: the sum is
+    +0), and makes no host buffer; after a fold both take the host's
+    path."""
+    rng = np.random.default_rng(4)
+    shapes = {"a": (3, 5), "b": (7,)}
+    template = map_with_paths(lambda _, s: np.zeros(s, np.float32), shapes)
+    updates = [map_with_paths(lambda _, s: (rng.standard_normal(s) * 1e3
+                                            ).astype(np.float32), shapes)
+               for _ in range(3)]
+    updates[0]["b"][2] = -0.0
+    for u in updates[1:]:
+        u["b"][2] = 0.0
+    dt = getattr(torch, dtype)
+    acc = fisher.TwoStageAccumulator(params_from_numpy(template, "cpu"),
+                                     device_dtype=dt, lazy_host=lazy)
+    ref = fisher.TwoStageAccumulator(params_from_numpy(template, "cpu"),
+                                     device_dtype=dt)
+    for u in updates:
+        acc.add(params_from_numpy(u, "cpu"))
+        ref.add(params_from_numpy(u, "cpu"))
+    got = dict(flat_with_paths(acc.mean(3)))
+    assert (acc._host == {}) == lazy
+    want = {p: torch.from_numpy(f / 3).float()
+            for p, f in flat_with_paths(ref.value())}
+    for p in want:
+        assert got[p].dtype == torch.float32
+        assert torch.equal(got[p], want[p]) and not torch.signbit(
+            got[p]).logical_and(got[p] == 0).any()
+    acc.flush()
+    assert all(torch.equal(g, want[p])
+               for p, g in flat_with_paths(acc.mean(3)))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_two_stage_accumulator_flushes(dtype):
     """Updates sum in the device dtype until ``flush_every`` of them, then

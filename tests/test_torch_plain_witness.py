@@ -104,3 +104,49 @@ def test_plain_witness_replays_the_served_engine_at_full_depth(no_card):
     assert out["max_rel_logit_err"] == 0.0 and out["margin_tokens"] > 0
     with pytest.raises(RuntimeError, match="prefill and a decode"):
         chip_smoke.plain_witness(eng, mods, records[1:], "smoke")
+
+
+def test_dequant_memo_replays_the_same_logits(no_card, monkeypatch):
+    """A CPU replay dequantises each packed weight of the engine once
+    (``dequant_memo``) and gives the same logits, bit for bit, as one that
+    dequantises every weight at every step; codes outside the engine's
+    weights are never kept, and the plain dequantiser is restored."""
+    import contextlib
+    from repro_torch.kernels.dequant_matmul import ref
+    cfg = configs.get_config("gemma3-1b", "smoke").replace(kv_format="q8")
+    params = transformer.init(cfg, seed=0, device="cpu")
+    plan = build_plan(params, "babsmax64:n4")
+    eng = ServeEngine.from_quantised(cfg, plan.quantise(params), plan,
+                                     batch_slots=4, kv_len=48,
+                                     prefill_chunk=8, device="cpu")
+    mods = chip_smoke.wrappers()
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, cfg.vocab, 8).tolist(), 4) for _ in range(4)]
+    _, _, records = chip_smoke.serve(eng, mods, reqs, keep_logits=True)
+    plain = ref.dequant_weight
+    calls = []
+
+    def counted(*a, **kw):
+        calls.append(a[0].data_ptr())
+        return plain(*a, **kw)
+    monkeypatch.setattr(ref, "dequant_weight", counted)
+    memo = [cpu for _, cpu, _ in chip_smoke.replay_on_cpu(eng, records)]
+    n_memo, calls[:] = len(calls), []
+    assert ref.dequant_weight is counted
+    monkeypatch.setattr(chip_smoke, "dequant_memo",
+                        lambda p: contextlib.nullcontext())
+    every = [cpu for _, cpu, _ in chip_smoke.replay_on_cpu(eng, records)]
+    assert len(records) > 2 and 0 < n_memo < len(calls)
+    assert len(memo) == len(every) > 0
+    assert all(np.array_equal(a, b) for a, b in zip(memo, every))
+
+    codes = torch.randint(0, 256, (64, 128), dtype=torch.uint8)
+    scales = torch.rand(64, 2)
+    cb = kv_codebook("q8", "cpu")
+    monkeypatch.undo()
+    with chip_smoke.dequant_memo(eng.params):
+        first = ref.dequant_weight(codes, scales, cb, 64, 8)
+        codes.add_(1)
+        again = ref.dequant_weight(codes, scales, cb, 64, 8)
+    assert ref.dequant_weight is plain
+    assert not torch.equal(first, again)
