@@ -124,6 +124,20 @@ Phases, each printed as JSON lines:
    on the dequantised bf16 stack, and at qwen2-moe's 2-D projections. Each
    run's CPU hold is made on a second card engine of 2 of the 24 layers at
    full width (``MOE_HOLD_LAYERS``), served the same requests.
+9b. llama4 at llama4-scout-17b-a16e full (48 layers, d 5120, 40 heads on 8
+   KV heads of 128, 16 routed experts of 8192, top-1, 1 shared, vocab
+   202048, untied: 107.77 B parameters, 431 GB in f32), babsmax64:n4
+   packed in 57.3 GB. Each 128.85-GB f32 expert stack is drawn one layer
+   slice at a time (``models.api.SlicedLeaf``); the build's peak device
+   bytes stay under 70 GB. 4 requests on a dense cache, then on a q8
+   cache: 481 ``dequant_matmul`` launches a step, 144 with the lead dim E
+   = 16 (q8: also 48 ``block_quant_kv`` and 48 ``decode_attention_quant``).
+   Each run's prefill step and first decode step are replayed at full
+   depth on the card's plain path, routed as the card routed; the dense
+   run is profiled and held to the CPU on a second engine of 1 layer
+   (``LLAMA4_HOLD_LAYERS``). Then ``launch.serve`` serves it. The kernel
+   phase times its 2-D projections and unembed, its KV write and its
+   attention read (40 on 8 heads) at M = 4.
 10. whisper (the encoder-decoder family) at whisper-large-v3 full (32
    encoder and 32 decoder layers, d 1280, 20 heads of 64, vocab 51866,
    1500 frames, tied), babsmax64:n4 packed, 4 slots, kv_len 256, chunk 8,
@@ -254,6 +268,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import importlib
 import importlib.util
 import io
@@ -508,6 +523,44 @@ WEIGHT_BYTES[INTERNLM_ARCH] = dict(total=10_553_303_616,
 WEIGHT_BYTES[INTERNVL_ARCH] = dict(total=13_039_825_600,
                                    codes=9_930_332_160, scales=602_875_584,
                                    codebooks=512, dense=2_506_617_344)
+LLAMA4_ARCH = "llama4-scout-17b-a16e"
+# llama4-scout-17b-a16e's 2-D projections with launches per decode step at
+# 48 layers (timed at M = 4; its expert stacks are in EXPERT_CASES): the
+# untied unembed's N = 202048 is a multiple of 64, not of 128
+LLAMA4_PROJECTIONS = [((5120, 5120), 96, "wq+wo"),
+                      ((5120, 1024), 96, "wk+wv"),
+                      ((5120, 8192), 96, "ws_gate+ws_up"),
+                      ((8192, 5120), 48, "ws_down"),
+                      ((5120, 202048), 1, "unembed")]
+# 48 layers x (4 attention + 3 expert stacks + 3 shared) + the unembed, 3 a
+# layer over the expert stacks with the lead dim E = 16; q8 adds one paired
+# KV write and one attention read a layer (40 heads on 8 KV heads of 128)
+LLAMA4_LAYERS = 48
+LLAMA4_LEAD_LAUNCHES = 3 * LLAMA4_LAYERS
+LAUNCHES_PER_STEP[LLAMA4_ARCH] = {"dequant_matmul": 10 * LLAMA4_LAYERS + 1}
+LAUNCHES_PER_STEP[LLAMA4_ARCH + " q8"] = {
+    "dequant_matmul": 10 * LLAMA4_LAYERS + 1, "block_quant": LLAMA4_LAYERS,
+    "decode_attention_quant": LLAMA4_LAYERS}
+# the dense run's CPU hold: a second engine at full width and this many
+# layers (its CPU side dequantises 2.27 GB of codes and two 1.03-B-parameter
+# tables; every layer more adds 2.1 GB of codes)
+LLAMA4_HOLD_LAYERS = 1
+LAUNCHES_PER_STEP[LLAMA4_ARCH + " hold"] = {
+    "dequant_matmul": 10 * LLAMA4_HOLD_LAYERS + 1}
+# the reference's packing rules on abstract arrays (tests/
+# test_torch_llama4.py): 12 packed tensors, the router dense
+WEIGHT_BYTES[LLAMA4_ARCH] = dict(total=57_268_101_888,
+                                 codes=53_882_716_160,
+                                 scales=3_367_669_760, codebooks=768,
+                                 dense=17_715_200)
+WEIGHT_BYTES[LLAMA4_ARCH + " hold"] = dict(total=2_269_348_608,
+                                           codes=2_135_490_560,
+                                           scales=133_468_160,
+                                           codebooks=768, dense=389_120)
+LLAMA4_KV_BYTES = {"dense": 207_618_048, "q8": 107_053_056}
+# the build's peak device bytes: 57.3 GB packed, one 2.68-GB f32 slice of
+# an expert stack (each whole stack is 128.85 GB) and its temporaries
+LLAMA4_SETUP_PEAK_MAX = 70e9
 
 
 def emit(**kw):
@@ -593,6 +646,14 @@ def bound_ms(nbytes, flops):
 def bound_by(nbytes, flops):
     return "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOPS_PER_S \
         else "operations"
+
+
+def release():
+    """Free the card's memory of the engines dropped so far: an engine
+    holds a reference cycle (its step closure names it), so it goes only
+    when the cycle collector runs, and then its blocks are returned."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def wrappers():
@@ -951,6 +1012,7 @@ def kernel_phase(mods, dev, tc_ptxas, attn_ptxas):
                 record)
     recurrent_rows(mods, dev, gen, cb4, flush, attn_ptxas, record)
     internlm_rows(mods, dev, gen, cb4, flush, record)
+    llama4_rows(mods, dev, gen, cb4, flush, attn_ptxas, record)
     example_rows(mods, dev, gen, flush, record)
     del flush
     torch.cuda.empty_cache()
@@ -1005,6 +1067,25 @@ def internlm_rows(mods, dev, gen, cb4, flush, record):
                 mods, dev, gen, cb4, flush, K, N, INTERNVL_APPLY_M, 4),
                 model=INTERNVL_ARCH, weights=names,
                 launches_per_apply=per_step)
+
+
+def llama4_rows(mods, dev, gen, cb4, flush, attn_ptxas, record):
+    """The kernels at llama4-scout-17b-a16e's shapes, M = 4 (a decode step
+    of 4 slots): ``dequant_matmul`` at its 2-D projections and its untied
+    (5120, 202048) unembed (the expert stacks: ``EXPERT_CASES``);
+    ``block_quant`` at 8 KV heads of 128 (the paired write of a decode
+    step, 32 rows) and ``decode_attention_quant`` at 40 q heads on 8 KV
+    heads of 128 (T = 1 and 8), q8."""
+    for (K, N), per_step, names in LLAMA4_PROJECTIONS:
+        record("dequant_matmul", matmul_case(
+            mods, dev, gen, cb4, flush, K, N, 4, 4), model=LLAMA4_ARCH,
+            weights=names, launches_per_step=per_step)
+    record("block_quant", block_quant_case(mods, dev, gen, flush, 4 * 8,
+                                           128, "q8"), model=LLAMA4_ARCH)
+    for T, starts in ((1, [200, 17, 100, 255]), (8, [200, 8, 100, 248])):
+        record("decode_attention_quant", attention_case(
+            mods, dev, gen, flush, T, 264, False, 0, starts, "q8",
+            attn_ptxas, (40, 8, 128)), model=LLAMA4_ARCH)
 
 
 def example_rows(mods, dev, gen, flush, record):
@@ -1606,24 +1687,33 @@ def plain_kernels():
             setattr(ops, name, fn)
 
 
-def plain_witness(eng, mods, records, what):
+def plain_witness(eng, mods, records, what, routes=None):
     """A full-depth witness of a served run whose CPU hold is cut in depth:
     the served engine's own prefill step and first decode step replayed at
     full depth on the card through the plain path (``plain_kernels``: the
-    same packed weights, no kernel launched), held by the margin rule."""
+    same packed weights, no kernel launched), held by the margin rule.
+    ``routes`` (a MoE run's expert choices, ``moe_serve``'s) routes the
+    replay as the served steps routed, held by ``hold_route_witness``."""
     records = records[:2]
     check(records[0]["T"] > 1 and records[-1]["T"] == 1,
           f"{what}: the witness needs the prefill and a decode step")
     launches = {name: m.launches for name, m in mods.items()}
+    rs = route_stats()
+    if routes is not None:
+        routes = routes[:len(records) * eng.cfg.n_layers]
     t0 = time.monotonic()
     with plain_kernels():
-        worst, n = compare_with_cpu(eng, records, device=eng.device)
+        worst, n = compare_with_cpu(eng, records, routes=routes,
+                                    route_stats=rs, device=eng.device)
     torch.cuda.synchronize()
     check({name: m.launches for name, m in mods.items()} == launches,
           f"{what}: a kernel launched in the plain replay")
-    return dict(layers=eng.cfg.n_layers, max_rel_logit_err=worst,
-                margin_tokens=n, compared_steps=len(records),
-                seconds=time.monotonic() - t0)
+    out = dict(layers=eng.cfg.n_layers, max_rel_logit_err=worst,
+               margin_tokens=n, compared_steps=len(records),
+               seconds=time.monotonic() - t0)
+    if routes is not None:
+        out["route_witness"] = hold_route_witness(rs)
+    return out
 
 
 def short_requests(vocab, seed=0):
@@ -3201,7 +3291,7 @@ def moe_phase(dev, mods):
         emit(phase="timing", moe_run_end_s=time.monotonic() - t_phase,
              kv_format=fmt)
     del eng
-    torch.cuda.empty_cache()
+    release()
     runs.append(moe_cli(mods))
     emit(phase="timing", moe_cli_end_s=time.monotonic() - t_phase)
     return runs
@@ -3257,38 +3347,40 @@ def moe_compare(eng, records, calls, key):
                 route_witness=hold_route_witness(rs))
 
 
-def moe_hold(dev, mods, reqs, kv_format):
-    """A run's CPU hold: a second engine of qwen2-moe-a2.7b at full width
-    and ``MOE_HOLD_LAYERS`` layers with the run's cache (``kv_format``: ""
-    dense, or "q8"), serving the same requests with the launches of its
+def moe_hold(dev, mods, reqs, kv_format, arch=MOE_ARCH,
+             layers=MOE_HOLD_LAYERS):
+    """A run's CPU hold: a second engine of ``arch`` (qwen2-moe-a2.7b) at
+    full width and ``layers`` layers with the run's cache (``kv_format``:
+    "" dense, or "q8"), serving the same requests with the launches of its
     depth, its prefill step and first decode step held to the CPU plain
     path at that depth."""
     t0 = time.monotonic()
-    eng, setup_s = build_engine(MOE_ARCH, dev, kv_len=256,
-                                kv_format=kv_format,
-                                n_layers=MOE_HOLD_LAYERS)
-    key = MOE_ARCH + (f" {kv_format}" if kv_format else "") + " hold"
+    eng, setup_s = build_engine(arch, dev, kv_len=256, kv_format=kv_format,
+                                n_layers=layers)
+    key = arch + (f" {kv_format}" if kv_format else "") + " hold"
     done, stats, records, calls = moe_serve(eng, mods, reqs, key)
     t1 = time.monotonic()
-    out = dict(layers=MOE_HOLD_LAYERS, setup_s=setup_s,
+    out = dict(layers=layers, setup_s=setup_s,
                launches=stats["launches"],
                tokens={g.rid: g.tokens for g in done},
                **moe_compare(eng, records, calls, key),
                cpu_compare_s=time.monotonic() - t1,
                hold_s=time.monotonic() - t0)
     del eng, records
-    torch.cuda.empty_cache()
+    release()
     return out
 
 
-def moe_cli(mods):
-    """``launch.serve`` at qwen2-moe-a2.7b full, packed: the user's entry
-    point sets the model up one leaf at a time and serves 4 requests of 8
-    tokens on the packed path, each step launching ``dequant_matmul`` 241
-    times, 72 of them with the expert lead dim, with the resident weight
-    bytes of ``WEIGHT_BYTES``. Returns the run's launches."""
+def moe_cli(mods, arch=MOE_ARCH, lead_per_step=MOE_LEAD_LAUNCHES, steps=8,
+            phase="moe", peak_max=None):
+    """``launch.serve`` at ``arch`` full (qwen2-moe-a2.7b), packed: the
+    user's entry point sets the model up one leaf at a time and serves 4
+    requests of ``steps`` tokens on the packed path, each step launching
+    ``dequant_matmul`` as ``LAUNCHES_PER_STEP[arch]`` says (241 for
+    qwen2-moe), ``lead_per_step`` of them with the expert lead dim, with
+    the resident weight bytes of ``WEIGHT_BYTES``; with ``peak_max``, the
+    run's peak device bytes stay under it. Returns the run's launches."""
     from repro_torch.launch import serve as serve_cli
-    arch, steps = MOE_ARCH, 8
     t0 = time.monotonic()
     mods["dequant_matmul"].lead_launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -3303,20 +3395,107 @@ def moe_cli(mods):
     check_packed_steps(launches, text, steps=steps,
                        per_step=LAUNCHES_PER_STEP[arch]["dequant_matmul"],
                        unembed=False, what=f"serve --arch {arch}")
-    check(lead == MOE_LEAD_LAUNCHES * steps, f"serve --arch {arch}: "
+    check(lead == lead_per_step * steps, f"serve --arch {arch}: "
           f"{lead} lead-dim launches over {steps} steps")
     wb = WEIGHT_BYTES[arch]
     check(f"{wb['codes']:,} codes + {wb['scales']:,} scales" in text and
           f"{wb['dense']:,} dense bytes" in text,
           f"serve --arch {arch}: weight bytes differ: {text[:600]}")
-    emit(phase="moe", step="cli", arch=arch, s=time.monotonic() - t0,
-         peak_mem_bytes=torch.cuda.max_memory_allocated(),
+    peak = torch.cuda.max_memory_allocated()
+    if peak_max is not None:
+        check(peak < peak_max, f"serve --arch {arch}: peak device bytes "
+              f"{peak:,} not under {peak_max:,.0f}")
+    emit(phase=phase, step="cli", arch=arch, s=time.monotonic() - t0,
+         peak_mem_bytes=peak,
          launches=launches, dequant_matmul_lead_launches=lead,
          report=[ln for ln in text.splitlines() if ln.startswith("[serve]")],
          tokens={g.rid: g.tokens for g in done})
     del done
-    torch.cuda.empty_cache()
+    release()
     return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9b: llama4-scout-17b-a16e served whole
+
+
+def llama4_phase(dev, mods):
+    """llama4-scout-17b-a16e full (48 layers, d 5120, 40 heads on 8 KV heads
+    of 128, 16 routed experts of 8192 top-1, one shared, vocab 202048,
+    untied), babsmax64:n4 packed: 107.77 B parameters whose f32 weights are
+    431 GB, served from 57.3 GB. Each expert stack is 128.85 GB in f32, so
+    ``build_packed_engine`` draws it a layer slice at a time
+    (``SlicedLeaf``); the build's peak device bytes stay under
+    ``LLAMA4_SETUP_PEAK_MAX``.
+
+    4 requests on a dense cache, then on a q8 cache (a second engine over
+    the same packed weights). Each step launches ``dequant_matmul`` 481
+    times, 144 of them over the expert stacks with the lead dim E = 16
+    (with q8 also 48 ``block_quant_kv`` and 48 ``decode_attention_quant``).
+    Each run's prefill step and first decode step are replayed at full
+    depth on the card's plain path, routed as the card routed
+    (``plain_witness``); the dense run is profiled and also held to the
+    CPU on a second engine at full width and ``LLAMA4_HOLD_LAYERS`` layers
+    (``moe_hold``). Then ``launch.serve`` serves the model from the command
+    line (``moe_cli``)."""
+    from repro_torch.serve.engine import ServeEngine
+    arch = LLAMA4_ARCH
+    t_phase = time.monotonic()
+    release()                   # the earlier phases' engines
+    start = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng, setup_s = build_engine(arch, dev, kv_len=256)
+    setup = {"setup_s": setup_s, "start_mem_bytes": start,
+             "setup_peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+    check(setup["setup_peak_mem_bytes"] < LLAMA4_SETUP_PEAK_MAX,
+          f"{arch}: the build's peak device bytes "
+          f"{setup['setup_peak_mem_bytes']:,} are not under "
+          f"{LLAMA4_SETUP_PEAK_MAX:,.0f}")
+    wb = eng.weight_bytes()
+    check({k: wb[k] for k in WEIGHT_BYTES[arch]} == WEIGHT_BYTES[arch],
+          f"{arch} weight_bytes {wb} != {WEIGHT_BYTES[arch]}")
+    cfg = eng.cfg
+    check(cfg.n_layers == LLAMA4_LAYERS, f"{arch}: {cfg.n_layers} layers")
+    reqs = short_requests(cfg.vocab)
+    runs = []
+    for fmt in ("dense", "q8"):
+        key = arch if fmt == "dense" else f"{arch} {fmt}"
+        if fmt != "dense":
+            t0 = time.monotonic()
+            eng = ServeEngine(cfg.replace(kv_format=fmt), eng.params,
+                              batch_slots=4, kv_len=256, prefill_chunk=8,
+                              device=dev)
+            setup = {"engine_s": time.monotonic() - t0}
+        done, stats, records, calls = moe_serve(eng, mods, reqs, key)
+        cb = eng.cache_bytes()
+        check(cb["kv"] == LLAMA4_KV_BYTES[fmt],
+              f"{key}: KV bytes {cb['kv']} != {LLAMA4_KV_BYTES[fmt]}")
+        out = dict(phase="llama4", arch=arch, kv_format=fmt, **setup,
+                   weight_bytes=wb, kv_bytes=cb["kv"],
+                   peak_mem_bytes=torch.cuda.max_memory_allocated(dev),
+                   dropped_share_per_step=moe_dropped(cfg, calls,
+                                                      stats["steps"]),
+                   step_tokens=[r["T"] for r in records], **stats)
+        if fmt == "dense":
+            emit(phase="profile", arch=arch, kv_format=fmt,
+                 **profile_steps(eng, mods))
+        out["plain_witness"] = plain_witness(eng, mods, records, key,
+                                             routes=calls)
+        if fmt == "dense":
+            out["cpu_hold"] = moe_hold(dev, mods, reqs, "", arch=arch,
+                                       layers=LLAMA4_HOLD_LAYERS)
+        del records
+        out["tokens"] = {g.rid: g.tokens for g in done}
+        emit(**out)
+        runs.append(stats)
+        emit(phase="timing", llama4_run_end_s=time.monotonic() - t_phase,
+             kv_format=fmt)
+    del eng
+    release()
+    runs.append(moe_cli(mods, arch, LLAMA4_LEAD_LAUNCHES, steps=4,
+                        phase="llama4", peak_max=LLAMA4_SETUP_PEAK_MAX))
+    emit(phase="timing", llama4_cli_end_s=time.monotonic() - t_phase)
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -5248,6 +5427,24 @@ def summary(rows, runs):
                         lambda r: r.get("model") == MOE_ARCH and
                         (lead is None or r["lead"] == lead),
                         lambda r: r["launches_per_step"]))
+    # llama4-scout's decode step: all 481 launches, and the 144 over the
+    # expert stacks (lead dim E = 16); with q8, its 48 paired KV writes and
+    # 48 attention reads
+    for what, lead in (("481 launches", None), ("its 144 expert-stack "
+                                                "launches, lead dim 16", 16)):
+        emit(phase="summary", kernel="dequant_matmul",
+             measured_over=f"one {LLAMA4_ARCH} decode step at M=4 ({what})",
+             **per_step(rows["dequant_matmul"],
+                        lambda r: r.get("model") == LLAMA4_ARCH and
+                        (lead is None or r["lead"] == lead),
+                        lambda r: r["launches_per_step"]))
+    for name, pick in (("block_quant", lambda r: r.get("model") ==
+                        LLAMA4_ARCH),
+                       ("decode_attention_quant", lambda r: r.get("model")
+                        == LLAMA4_ARCH and r["T"] == 1)):
+        emit(phase="summary", kernel=name, measured_over=f"one "
+             f"{LLAMA4_ARCH} decode step (B=4, q8 cache, 48 layers)",
+             **per_step(rows[name], pick, lambda r: LLAMA4_LAYERS))
     # block_quant per gemma3-1b decode step (hd 256, 4 rows): the paired
     # call once a layer against two single-tensor calls a layer (the
     # parent's path), by one call per event pair and launch-bound
@@ -5400,6 +5597,8 @@ def main() -> int:
     emit(phase="timing", frontend_end_s=time.monotonic() - t_start)
     moe_runs = moe_phase(dev, mods)
     emit(phase="timing", moe_end_s=time.monotonic() - t_start)
+    llama4_runs = llama4_phase(dev, mods)
+    emit(phase="timing", llama4_end_s=time.monotonic() - t_start)
     whisper_runs = whisper_phase(dev, mods)
     emit(phase="timing", whisper_end_s=time.monotonic() - t_start)
     internvl_runs = internvl_phase(dev, mods)
@@ -5417,7 +5616,7 @@ def main() -> int:
 
     line = summary(rows, [paper, deepseek, internlm, *gemma, *alloc_runs,
                           *train_runs, *frontend_runs, *moe_runs,
-                          *whisper_runs, *internvl_runs, *rwkv_runs,
+                          *llama4_runs, *whisper_runs, *internvl_runs, *rwkv_runs,
                           *zamba_runs, *multidevice_runs, *example_runs,
                           *family_runs])
     emit(phase="timing", total_s=time.monotonic() - t_start)

@@ -161,14 +161,21 @@ class QuantisationPlan:
         tile each output row, so no block straddles two slices and the
         codes are those of the whole leaf, while the quantiser's f32
         temporaries are one slice's (an expert stack of qwen2-moe full is
-        16.6 GB in f32)."""
+        16.6 GB in f32). A packable leaf without lead dims is quantised
+        :data:`PACK_CHUNK_ELEMS` elements of whole rows at a time for the
+        same reason (llama4-scout's unembed is 4.14 GB in f32). ``x`` may
+        be a lazily drawn leaf (``models.api.SlicedLeaf``): the lead-dim
+        path reads its slices in order; any other path draws it whole."""
         f = self.formats.get(name)
         if f is None:
-            return x
+            return whole_leaf(x)
         shape = tuple(x.shape)
-        if not self.packable(name, shape, layouts) or layouts[name][0] == 0:
-            return self._pack_one(name, f.quantise(x), layouts)
+        if not self.packable(name, shape, layouts):
+            return self._pack_one(name, f.quantise(whole_leaf(x)), layouts)
         n_lead, n_k = layouts[name]
+        if n_lead == 0:
+            return self._to_packed(name, _quantise_rows(f, whole_leaf(x),
+                                                        n_k), layouts)
         sub = {name: (n_lead - 1, n_k)}
         codes = scales = part = None
         for i in range(shape[0]):
@@ -202,12 +209,13 @@ class QuantisationPlan:
                   keep_bits: float = 16.0) -> float:
         """Bits per parameter of the one leaf ``name``: ``keep_bits`` if it
         is not planned, measured on ``x`` for a compressed format (or with
-        ``measured``), else the format's analytic bits at ``x``'s shape."""
+        ``measured``; a lazily drawn leaf is drawn whole for it), else the
+        format's analytic bits at ``x``'s shape."""
         f = self.formats.get(name)
         if f is None:
             return keep_bits
         if measured or f.compressed:
-            return f.measured_bits_per_param(x)
+            return f.measured_bits_per_param(whole_leaf(x))
         return f.bits_per_param(tuple(x.shape))
 
     def bits_per_param(self, params, measured: bool = False,
@@ -218,6 +226,45 @@ class QuantisationPlan:
             total_bits += self.leaf_bits(name, x, measured, keep_bits) * n
             total_n += n
         return total_bits / max(total_n, 1)
+
+
+# Elements of whole rows that ``pack_leaf`` quantises at a time in a leaf
+# without lead dims: 1 GiB of f32.
+PACK_CHUNK_ELEMS = 1 << 28
+
+
+def whole_leaf(x):
+    """``x`` as one tensor: a lazily drawn leaf (one with ``whole()``,
+    ``models.api.SlicedLeaf``) is drawn whole; a tensor is itself."""
+    return x.whole() if hasattr(x, "whole") else x
+
+
+def _quantise_rows(f: TensorFormat, x, n_k: int) -> QuantisedTensor:
+    """``f.quantise(x)`` made :data:`PACK_CHUNK_ELEMS` elements of whole
+    rows of the (K, N) matrix view at a time, K the product of the first
+    ``n_k`` dims (``f`` is block-scaled and its blocks tile N, as
+    ``packable`` checks): the same codes and scales, with one chunk's f32
+    temporaries."""
+    shape = tuple(x.shape)
+    K = int(np.prod(shape[:n_k]))
+    N = int(np.prod(shape[n_k:]))
+    rows = max(1, PACK_CHUNK_ELEMS // max(N, 1))
+    if rows >= K:
+        return f.quantise(x)
+    xm = x.reshape(K, N)
+    codes = scales = first = None
+    for r in range(0, K, rows):
+        q = f.quantise(xm[r:r + rows])
+        n = min(rows, K - r)
+        if codes is None:
+            first = q
+            codes = q.codes.new_empty((K, N))
+            scales = q.scales.new_empty((K, q.scales.numel() // n))
+        codes[r:r + n] = q.codes.reshape(n, N)
+        scales[r:r + n] = q.scales.reshape(n, -1)
+        del q
+    return dataclasses.replace(first, codes=codes, scales=scales,
+                               shape=shape)
 
 
 def verify_packed_tree(packed) -> int:

@@ -193,15 +193,31 @@ class PackedTensor:
         bad = int((~torch.isfinite(cb)).sum())
         if bad:
             fail(f"non-finite codebook ({bad} of {cb.numel()} entries)")
-        bad = int((~torch.isfinite(self.scales.float())).sum())
+        bad = sum(int((~torch.isfinite(s.float())).sum())
+                  for s in _flat_chunks(self.scales))
         if bad:
             fail(f"non-finite block scales ({bad} of {self.scales.numel()} "
                  "entries)")
-        c = self.unpacked_codes()
-        cmax = int(c.max()) if c.numel() else 0
+        # the largest code: a byte's two nibbles are two codes, wherever
+        # the layout puts them
+        cmax = max((int(c.max()) if self.bits == 8 else
+                    max(int((c & 0xF).max()), int((c >> 4).max()))
+                    for c in _flat_chunks(self.codes)), default=0)
         if cmax >= n_codes:
             fail(f"code {cmax} out of codebook range [0, {n_codes})")
 
+
+# Elements a ``verify`` reduction reads at a time: its temporaries stay
+# within a few of these however large the tensor (an expert stack of
+# llama4-scout-17b-a16e holds 16.1 GB of codes).
+VERIFY_CHUNK_ELEMS = 1 << 28
+
+
+def _flat_chunks(x: torch.Tensor):
+    """``x`` flattened, in consecutive pieces of ``VERIFY_CHUNK_ELEMS``."""
+    flat = x.reshape(-1)
+    for i in range(0, flat.numel(), VERIFY_CHUNK_ELEMS):
+        yield flat[i:i + VERIFY_CHUNK_ELEMS]
 
 @dataclass(frozen=True)
 class TensorFormat:

@@ -258,27 +258,134 @@ def count_params(specs) -> int:
                if isinstance(s, ParamSpec))
 
 
-def init_leaves(specs, *, seed: int = 0, device=None, finish=None):
+# A leaf whose f32 bytes exceed this is drawn one slice of its first
+# (layer) dim at a time (``SlicedLeaf``); every other leaf is drawn whole.
+# The largest leaf of the models served whole on one card is 19.33 GB
+# (internlm2-20b's and internvl2-26b's w_down); llama4-scout-17b-a16e's
+# three expert stacks are 128.85 GB each, more than the card holds.
+SLICE_LEAF_BYTES = 32 << 30
+
+
+def init_leaves(specs, *, seed: int = 0, device=None, finish=None,
+                sliced: bool = True):
     """Yield ``(path, tensor)`` for every leaf of ``specs`` in sorted path
     order, each made on ``device`` when it is reached: truncated-normal
     (±3σ) fan-in init for >=2-D leaves (std 0.02 for embeddings), ones for
     norm gains, zeros for biases and vectors. One ``torch.Generator`` seeded
-    with ``seed`` on the target device draws every leaf in turn, so the
-    leaves equal :func:`init_from_specs`'s; a caller that quantises each
+    with ``seed`` on the target device draws every leaf in turn, and a leaf
+    is dropped before the next is drawn, so a caller that quantises each
     leaf and drops it holds one f32 leaf at a time. The numbers differ from
     ``jax.random``'s; tests carry reference weights across with
     ``repro_torch.interop`` instead. ``finish(path, leaf) -> leaf``, where
     given, replaces each drawn leaf (a family's ``finish_leaf``); the draw
     is made all the same, so the generator's stream does not depend on
-    it."""
+    it.
+
+    With ``sliced`` (the default), a leaf whose f32 bytes exceed
+    :data:`SLICE_LEAF_BYTES` comes as a :class:`SlicedLeaf`, drawn a slice
+    at a time as the caller reads it; it must be read before the next leaf
+    is asked for. Every other leaf, and every leaf with ``sliced=False``, is
+    the one :func:`init_from_specs` makes."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    limit = SLICE_LEAF_BYTES if sliced else None
     for name, spec in flat_with_paths(specs):
-        leaf = _init_leaf(name, spec, gen, dev)
-        yield name, leaf if finish is None else finish(name, leaf)
+        leaf = _init_leaf(name, spec, gen, dev, limit)
+        if isinstance(leaf, SlicedLeaf):
+            if finish is not None:
+                raise ValueError(f"{name}: a family that finishes its "
+                                 "leaves cannot draw one in slices")
+            yield name, leaf
+            leaf.close()
+        else:
+            yield name, leaf if finish is None else finish(name, leaf)
+        del leaf        # the next leaf is drawn with this one freed
 
 
-def _init_leaf(name, spec, gen, dev):
+class SlicedLeaf:
+    """A stacked leaf too large to draw whole, drawn one slice of its first
+    (layer) dim at a time: ``leaf[i]`` is made when it is asked for, in
+    order, by the generator that draws every leaf, as a truncated normal
+    whose std is the whole leaf's (fan-in = numel ÷ last dim of the stacked
+    leaf, as :func:`_init_leaf` computes it; a slice's own fan-in would give
+    another distribution). So the f32 bytes it holds at a time are one
+    slice's (2.68 GB for an expert stack of llama4-scout-17b-a16e full,
+    whose whole leaf is 128.85 GB). It has the leaf's ``shape``, ``dtype``
+    and ``numel()``; ``QuantisationPlan.pack_leaf`` and ``leaf_bits`` take
+    it as they take a tensor.
+
+    It is a different seeded draw from the whole leaf that
+    :func:`init_from_specs` would make if it could, and so are the leaves
+    drawn after it. Nothing needs ``init``'s numbers: the card's holds
+    compare the card with the plain path on the same packed weights, and
+    the CPU parity tests carry reference weights across through
+    ``interop``.
+
+    Asking for slice 0 again restarts the draw from the generator state
+    where the leaf began, so the slices can be read more than once and are
+    the same each time. :meth:`close` (``init_leaves`` calls it before the
+    next leaf) leaves the generator where the last slice's draw left it,
+    whatever the caller read."""
+
+    def __init__(self, name, shape, dtype, std, gen, device):
+        self.name = name
+        self.shape = torch.Size(shape)
+        self.dtype = dtype
+        self.device = device
+        self.std = std
+        self._gen = gen
+        self._start = gen.get_state()
+        self._end = None
+        self._next = 0
+        self._closed = False
+
+    def numel(self) -> int:
+        return int(np.prod(self.shape))
+
+    def __len__(self) -> int:
+        return self.shape[0]
+
+    def __getitem__(self, i):
+        if self._closed:
+            raise RuntimeError(f"{self.name}: a sliced leaf is read before "
+                               "the next leaf is drawn")
+        if i == 0 and self._next:
+            self._gen.set_state(self._start)
+            self._next = 0
+        if i != self._next:
+            raise IndexError(f"{self.name}: slice {i} asked for where slice "
+                             f"{self._next} is next (slices come in order)")
+        x = torch.empty(self.shape[1:], dtype=torch.float32,
+                        device=self.device)
+        torch.nn.init.trunc_normal_(x, 0.0, 1.0, -3.0, 3.0,
+                                    generator=self._gen)
+        self._next += 1
+        if self._next == len(self):
+            self._end = self._gen.get_state()
+        return x.mul_(self.std).to(self.dtype)
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield self[i]
+
+    def whole(self) -> torch.Tensor:
+        """The leaf as one tensor (all of its bytes at once)."""
+        out = torch.empty(self.shape, dtype=self.dtype, device=self.device)
+        for i, x in enumerate(self):
+            out[i] = x
+        return out
+
+    def close(self):
+        """Draw what the caller left unread and leave the generator where
+        the last slice's draw left it; the leaf reads no more."""
+        if self._end is None:
+            for i in range(self._next, len(self)):
+                self[i]
+        self._gen.set_state(self._end)
+        self._closed = True
+
+
+def _init_leaf(name, spec, gen, dev, slice_bytes=None):
     dt = torch_dtype(spec.dtype)
     if "norm" in name or name.endswith("gain']"):
         return torch.ones(spec.shape, dtype=dt, device=dev)
@@ -288,6 +395,8 @@ def _init_leaf(name, spec, gen, dev):
         std = 0.02
     else:  # fan_in = numel / fan_out(last dim)
         std = 1.0 / np.sqrt(max(spec.numel // max(spec.shape[-1], 1), 1))
+    if slice_bytes is not None and 4 * spec.numel > slice_bytes:
+        return SlicedLeaf(name, spec.shape, dt, std, gen, dev)
     x = torch.empty(spec.shape, dtype=torch.float32, device=dev)
     torch.nn.init.trunc_normal_(x, 0.0, 1.0, -3.0, 3.0, generator=gen)
     return x.mul_(std).to(dt)
@@ -297,14 +406,17 @@ def init_from_specs(specs, *, seed: int = 0, device=None, finish=None):
     """Materialise parameters on ``device`` (default the card): the leaves
     of :func:`init_leaves`, in the tree of ``specs``."""
     leaves = dict(init_leaves(specs, seed=seed, device=device,
-                              finish=finish))
+                              finish=finish, sliced=False))
     return map_with_paths(lambda name, _: leaves[name], specs)
 
 
 def family_leaves(cfg: ModelConfig, *, seed: int = 0, device=None):
     """The leaves of ``cfg``'s family ``init``, one at a time
     (:func:`init_leaves` over its parameter specs, each leaf finished by
-    the family's ``finish_leaf``): what ``build_packed_engine`` packs."""
+    the family's ``finish_leaf``): what ``build_packed_engine`` packs. A
+    leaf above :data:`SLICE_LEAF_BYTES` comes as a :class:`SlicedLeaf`
+    (llama4-scout-17b-a16e's expert stacks); below it, the leaves are
+    ``init``'s bit for bit."""
     fam = get_family(cfg.family)
     finish = (None if fam.finish_leaf is None else
               lambda name, leaf: fam.finish_leaf(cfg, name, leaf))
