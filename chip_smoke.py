@@ -35,6 +35,10 @@ Phases, each printed as JSON lines:
    same ctypes route (the launch floor) and the host's time per call.
 3. serve paper-100m full: babsmax64:n4 packed, seeded weights, 4 slots x 4
    requests; launch counts, resident bytes, and card-vs-CPU logits/tokens.
+   Each served engine of phases 3 and 4, dropped with the cycle collector
+   off, must be freed at once: a weakref to it dead and the card's
+   allocated bytes back within ``DROP_SLACK`` (4 MiB) of their level
+   before its build (``check_dropped``).
 4. serve deepseek-7b full, then internlm2-20b full (48 layers, d 6144, 48
    heads over 8 KV heads of 128, d_ff 16384, vocab 92544, untied; 10.6 GB
    packed, 337 ``dequant_matmul`` launches a step, weight and KV bytes by
@@ -106,12 +110,15 @@ Phases, each printed as JSON lines:
    fault drills (a corrupted scale refused at load, a step failure retried,
    the dense fallback, a retry after the cache write, a stall caught by the
    watchdog and the straggler monitor). Every replay outside the drill runs
-   without the dense fallback and must launch all four kernels.
+   without the dense fallback and must launch all four kernels. Each
+   timed replay's engine, under its ``Scheduler``, is dropped with them
+   and held by ``check_dropped``.
 9. moe (MoE serving) at qwen2-moe-a2.7b full (24 layers, d 2048, 60
    routed experts of 1408, top-4, 4 shared, vocab 151936, untied),
    babsmax64:n4 packed, seeded weights drawn and packed one leaf at a time
    (the f32 tree is 57.3 GB): 4 requests on a dense cache, then on a q8
-   cache, kv_len 256, chunk 8. Every step launches ``dequant_matmul`` 241
+   cache, kv_len 256, chunk 8 (both engines, dropped, held by
+   ``check_dropped``). Every step launches ``dequant_matmul`` 241
    times, 72 of them over the expert stacks with the lead dim E = 60 (q8:
    also 24 ``block_quant_kv`` and 24 ``decode_attention_quant``); resident
    bytes against the shapes', peak device bytes, the dropped share of the
@@ -134,7 +141,7 @@ Phases, each printed as JSON lines:
    = 16 (q8: also 48 ``block_quant_kv`` and 48 ``decode_attention_quant``).
    Each run's prefill step and first decode step are replayed at full
    depth on the card's plain path, routed as the card routed; the dense
-   run is profiled and held to the CPU on a second engine of 1 layer
+   run is profiled and held to the CPU on a second engine of 2 layers
    (``LLAMA4_HOLD_LAYERS``). Then ``launch.serve`` serves it. The kernel
    phase times its 2-D projections and unembed, its KV write and its
    attention read (40 on 8 heads) at M = 4.
@@ -180,9 +187,10 @@ Phases, each printed as JSON lines:
    other kernel; the reused slot's tokens against a fresh engine's, the
    whole run repeated bit for bit, weight and state bytes, a profile, the
    prefill step and first decode step held to the CPU plain path at full
-   depth, then one 256-token prompt at prefill chunk 8 (the block-parallel
-   WKV form) held position by position to chunk 1 (the scan) by the margin
-   rule, and ``launch.serve --arch rwkv6-1.6b`` from the command line.
+   depth, then one 128-token prompt (``RECURRENT_LONG_PROMPT``) at prefill
+   chunk 8 (the block-parallel WKV form) held position by position to
+   chunk 1 (the scan) by the margin rule, and ``launch.serve --arch
+   rwkv6-1.6b`` from the command line.
 13. zamba2 (the hybrid family) at zamba2-2.7b full (54 Mamba-2 layers in 9
    groups of 6, d 2560, d_inner 5120, state 64, a shared block of 32 heads
    of 80 applied 9 times, d_ff 10240, vocab 32000): the same, with a dense
@@ -195,8 +203,10 @@ Phases, each printed as JSON lines:
    ``dequant_matmul`` at both families' shapes (N = 64 and K = 64 among
    them), ``block_quant`` at head dim 80 and ``decode_attention_quant`` at
    32 heads of 80.
-14. multidevice (the multi-device layer) on an NCCL world of one rank on
-   the card (one GPU; more ranks wait for a machine with more):
+14. multidevice (the multi-device layer; it and phase 15 run as the last
+   card work of phase 16, while its CPU worker finishes) on an NCCL world
+   of one rank on the card (one GPU; more ranks wait for a machine with
+   more):
    ``serve.context_parallel.cp_decode_attention`` at gemma3-1b's long_500k
    global layer (S = 524,288, 4 heads over 1 KV head of 256, bf16) against
    ``layers.decode_attention`` (within 1e-2 of max|out|), and 16 slices of
@@ -232,15 +242,13 @@ Phases, each printed as JSON lines:
    finite losses; (b) qwen2-moe at 1 layer, its state after step 2 copied
    to the host and back, step 3 bit for bit (determinism and the state's
    round trip through host memory; not the checkpoint file, whose 14.3 GB
-   took 80-89 s); at a hold depth (2 layers,
-   whisper 2 + 2, zamba2 one group of 6 and its shared block), in f32
-   with the same weights and batch on the card and the CPU: (c) one CE
+   took 80-89 s); at a hold depth (2 layers, whisper 2 + 2, zamba2 one
+   group of 6 and its shared block), in f32 with the same weights and batch on the card and the CPU: (c) one CE
    ``make_train_step`` (loss and grad_norm within 1e-4, every leaf's
    gradient within 1e-3 relative L2), (d) one babsmax64:int4 distillation
    step (KL and grad_norm within 1e-3), (e) the Fisher of one T = 256
-   sequence with the same labels (each tensor's mean within 5%); (d) and
-   (e) held to the CPU for whisper, rwkv6 and zamba2 and made on the card
-   alone for qwen2-moe and internvl2-26b (``cpu_holds``); the Eq. 5
+   sequence with the same labels (each tensor's mean within 5%), each
+   held to the CPU for every family (``cpu_holds``); the Eq. 5
    allocation at 4.0 bits from the card's Fisher packed babsmax64 (widths
    2-8 per tensor, every layer and expert slice of each packed leaf through
    ``dequant_matmul`` in bf16 and f32 held to its plain version) and one
@@ -269,6 +277,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import importlib
 import importlib.util
 import io
@@ -281,6 +290,7 @@ import subprocess
 import sys
 import time
 import warnings
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -506,7 +516,9 @@ RECURRENT_KV_BYTES = {RWKV_ARCH: {"dense": 0},
                       ZAMBA_ARCH: {"dense": 97_320_960, "q8": 51_093_504}}
 RECURRENT_OTHER_BYTES = {RWKV_ARCH: 51_118_096,
                          ZAMBA_ARCH: 6_801_408 + 283_115_520 + 16}
-RECURRENT_LONG_PROMPT = 256       # the long-state check's prompt
+# the long-state check's prompt: 128 tokens, 16 chunks of 8 (at 256 its
+# 263 scan steps took 28 and 38 s of the host-bound rwkv6 and zamba2 phases)
+RECURRENT_LONG_PROMPT = 128
 # 4 slots x (256 + 8) slots a layer; the cross K/V, 4 slots x 1500 frames
 # x 32 layers x 1280 x 2 (k and v) in bf16, and pos
 WHISPER_KV_BYTES = {"dense": 173_015_040, "q8": 91_914_240}
@@ -542,9 +554,10 @@ LAUNCHES_PER_STEP[LLAMA4_ARCH + " q8"] = {
     "dequant_matmul": 10 * LLAMA4_LAYERS + 1, "block_quant": LLAMA4_LAYERS,
     "decode_attention_quant": LLAMA4_LAYERS}
 # the dense run's CPU hold: a second engine at full width and this many
-# layers (its CPU side dequantises 2.27 GB of codes and two 1.03-B-parameter
-# tables; every layer more adds 2.1 GB of codes)
-LLAMA4_HOLD_LAYERS = 1
+# layers (its CPU side dequantises 3.24 GB of codes and two 1.03-B-parameter
+# tables; every layer more adds 1.1 GB of codes); at 1 layer the routing
+# witness saw 36 dispatches, so one flip read 2.78% against its 5% limit
+LLAMA4_HOLD_LAYERS = 2
 LAUNCHES_PER_STEP[LLAMA4_ARCH + " hold"] = {
     "dequant_matmul": 10 * LLAMA4_HOLD_LAYERS + 1}
 # the reference's packing rules on abstract arrays (tests/
@@ -553,10 +566,10 @@ WEIGHT_BYTES[LLAMA4_ARCH] = dict(total=57_268_101_888,
                                  codes=53_882_716_160,
                                  scales=3_367_669_760, codebooks=768,
                                  dense=17_715_200)
-WEIGHT_BYTES[LLAMA4_ARCH + " hold"] = dict(total=2_269_348_608,
-                                           codes=2_135_490_560,
-                                           scales=133_468_160,
-                                           codebooks=768, dense=389_120)
+WEIGHT_BYTES[LLAMA4_ARCH + " hold"] = dict(total=3_439_534_848,
+                                           codes=3_236_495_360,
+                                           scales=202_280_960,
+                                           codebooks=768, dense=757_760)
 LLAMA4_KV_BYTES = {"dense": 207_618_048, "q8": 107_053_056}
 # the build's peak device bytes: 57.3 GB packed, one 2.68-GB f32 slice of
 # an expert stack (each whole stack is 128.85 GB) and its temporaries
@@ -649,11 +662,43 @@ def bound_by(nbytes, flops):
 
 
 def release():
-    """Free the card's memory of the engines dropped so far: an engine
-    holds a reference cycle (its step closure names it), so it goes only
-    when the cycle collector runs, and then its blocks are returned."""
-    gc.collect()
+    """Give the caching allocator's free blocks back to the card. A dropped
+    engine is freed on ``del`` (nothing it holds refers back to it), so no
+    cycle collector is run first."""
     torch.cuda.empty_cache()
+
+
+# bytes a dropped engine may leave allocated above the level before its
+# build: at most 753,664 B were left on an NVIDIA H100 80GB HBM3 (the kernel
+# phase having run first), while the smallest engine held (the front end's)
+# allocates 32 MB, so an engine kept alive shows
+DROP_SLACK = 4 * 2**20
+
+
+@contextlib.contextmanager
+def collector_off():
+    """The cycle collector disabled while the context lasts, so that what
+    a ``del`` frees inside it is freed by reference counts alone."""
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
+
+
+def check_dropped(what, gone, start, dev):
+    """After the last references to engines were dropped inside
+    ``collector_off``: each engine (``gone``, weakrefs to them) is dead and
+    the card's allocated bytes are back within ``DROP_SLACK`` of
+    ``start``, their level before the engines were built. Returns the
+    readings."""
+    torch.cuda.synchronize(dev)
+    above = torch.cuda.memory_allocated(dev) - start
+    check(all(r() is None for r in gone),
+          f"{what}: a dropped engine is still referenced")
+    check(above <= DROP_SLACK, f"{what}: {above:,} B still allocated above "
+          f"the level before the build after the engine was dropped")
+    return dict(engine_freed=True, bytes_above_start=above)
 
 
 def wrappers():
@@ -1729,9 +1774,11 @@ def serve_phase(arch, dev, mods, hold_layers=None, kv_bytes=None):
     second engine of that many layers at full width serving the same
     requests (``depth_hold``, its prefill step and first decode step).
     ``kv_bytes``: the cache's KV bytes by the reference's count."""
+    start = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     eng, setup_s = build_engine(arch, dev)
     setup_peak = torch.cuda.max_memory_allocated(dev)
+    gone = [weakref.ref(eng)]
     wb = eng.weight_bytes()
     check({k: wb[k] for k in WEIGHT_BYTES[arch]} == WEIGHT_BYTES[arch],
           f"{arch} weight_bytes {wb} != {WEIGHT_BYTES[arch]}")
@@ -1752,7 +1799,9 @@ def serve_phase(arch, dev, mods, hold_layers=None, kv_bytes=None):
     out["tokens"] = {g.rid: g.tokens for g in done}
     if hold_layers is not None:
         out["plain_witness"] = plain_witness(eng, mods, records, arch)
-        del eng, records
+        with collector_off():
+            del eng, records
+            out["dropped"] = check_dropped(arch, gone, start, dev)
         torch.cuda.empty_cache()
         out["cpu_hold"] = depth_hold(arch, dev, mods, reqs, hold_layers,
                                      compare_steps=2)
@@ -1764,9 +1813,10 @@ def serve_phase(arch, dev, mods, hold_layers=None, kv_bytes=None):
                cpu_compared_steps=len(records),
                cpu_compared_layers=eng.cfg.n_layers,
                cpu_compare_s=time.monotonic() - t0)
-    del records
+    with collector_off():
+        del eng, records
+        out["dropped"] = check_dropped(arch, gone, start, dev)
     emit(**out)
-    del eng
     torch.cuda.empty_cache()
     return out
 
@@ -2426,11 +2476,17 @@ def compressed_checkpoint(dev, mods, params, root):
     params = {**params, "layers": {k: v[:CODEC_LAYERS]
                                    for k, v in params["layers"].items()}}
     n_params = sum(x.numel() for _, x in flat_with_paths(params))
-    fitted, fit = [], compressed_ckpt.fit_grid_delta
+    fitted, calls, fit = {}, [], compressed_ckpt.fit_grid_delta
 
-    def recording_fit(x, **kw):       # the exact deltas, in save order
-        fitted.append(fit(x, **kw))
-        return fitted[-1]
+    def key(x):                       # a host f32 tensor, by its bytes
+        x = np.ascontiguousarray(x, np.float32)
+        return x.shape, hashlib.blake2b(x.tobytes(), digest_size=16).digest()
+
+    def recording_fit(x, **kw):       # the exact deltas, by the tensor
+        delta = fit(x, **kw)          # fitted (the codec fits in threads)
+        fitted[key(x)] = delta
+        calls.append(delta)
+        return delta
     compressed_ckpt.fit_grid_delta = recording_fit
     t0 = time.monotonic()
     try:
@@ -2452,7 +2508,6 @@ def compressed_checkpoint(dev, mods, params, root):
     npz = np.load(os.path.join(path, "arrays.npz"))
     metas = {k[:-len(".__meta")]: npz[k] for k in npz.files
              if k.endswith(".__meta")}
-    deltas = iter(fitted)
     worst, worst_name, n_exact = 0.0, None, 0
     for (name, a), (_, b) in zip(_flat_with_paths(params),
                                  _flat_with_paths(loaded)):
@@ -2462,10 +2517,10 @@ def compressed_checkpoint(dev, mods, params, root):
         if meta is None:
             check(torch.equal(a.float(), b), f"raw tensor {name} changed")
             continue
-        delta = next(deltas)
+        a_host = a.detach().to("cpu", torch.float32)
+        delta = fitted[key(a_host.numpy())]
         check(int(meta[1]) == int(delta * 2.0 ** 40),
               f"compressed checkpoint: {name}'s stored delta")
-        a_host = a.detach().to("cpu", torch.float32)
         want = (uniform_grid(delta).quantise(a_host).float()
                 * (int(meta[1]) / 2.0 ** 40))
         check(torch.equal(want, b.cpu()), f"compressed checkpoint: {name} "
@@ -2475,7 +2530,7 @@ def compressed_checkpoint(dev, mods, params, root):
                     .sqrt())
         if err >= worst:
             worst, worst_name = err, name
-    check(n_exact == len(metas) == len(fitted),
+    check(n_exact == len(metas) == len(calls),
           f"{n_exact} of {len(metas)} quantised tensors checked")
     npz.close()
     check(3.9 < man["achieved_bits_per_param"] < 4.1,
@@ -2839,21 +2894,24 @@ def frontend_replay(cfg, packed, dev, mods, workload, use_prefix=True,
     for ``probe_rid``, the first ``PREFIX_LEN`` cache rows of its slot as
     they stood when it emitted its first token."""
     from repro_torch.serve import faults, traffic
-    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.engine import ServeEngine, weak_method
     eng = ServeEngine(cfg, packed, dense_fallback=False, device=dev,
                       **FRONTEND_KW)
     rows, probe, slot1, ctrs = {}, {}, [], []
-    emit_token, step = eng._emit_token, eng._step
+    # the recorders reach the engine weakly, as the fault injectors do
+    ref = weakref.ref(eng)
+    emit_token, step = (weak_method(eng, "_emit_token"),
+                        weak_method(eng, "_step"))
 
     def emit(i, g, row, finished):
         rows.setdefault(g.rid, []).append(row.copy())
         if g.rid == probe_rid and not g.tokens:
             probe.update({k: v[:, i, :PREFIX_LEN].to("cpu", copy=True)
-                          for k, v in eng._state.items() if k != "pos"})
+                          for k, v in ref()._state.items() if k != "pos"})
         emit_token(i, g, row, finished)
 
     def holder(p, s, b):
-        slot = eng._slots[1]
+        slot = ref()._slots[1]
         slot1.append(None if slot is None else slot.rid)
         return step(p, s, b)
 
@@ -2958,7 +3016,8 @@ def hold_prefix_rows(forked, recomputed):
 def fail_after_write(eng, steps):
     """Raise from the device step at each index in ``steps`` *after* the
     inner step ran, so its in-place cache writes have landed."""
-    inner = eng._step
+    from repro_torch.serve.engine import weak_method
+    inner = weak_method(eng, "_step")
     ctr = {"step": 0, "raised": 0}
 
     def wrapped(p, s, b):
@@ -3056,7 +3115,6 @@ def drill(cfg, qparams, plan, packed, dev, mods):
                       **FRONTEND_KW)
     for rid, (p, n) in enumerate(reqs):
         eng.submit(Request(prompt=p, max_new_tokens=n, rid=rid))
-    inner = eng._step
     ctr = faults.inject_slow_steps(eng, {10}, delay_s=3.0)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -3069,7 +3127,7 @@ def drill(cfg, qparams, plan, packed, dev, mods):
     check(partial and all(not g.done for g in partial),
           "the watchdog returned no partials")
     n_partial = len(partial)
-    eng._step = inner
+    del eng._step                 # the engine's own step again
     done = eng.run()
     toks = {g.rid: g.tokens for g in done}
     check(toks == clean, "resumed partials differ from the clean run")
@@ -3125,7 +3183,7 @@ def frontend_phase(dev, mods):
          kv_format="q8", spec=dataclasses.asdict(spec), setup_s=setup_s,
          signatures_equal=True, **replay_metrics(reuse),
          repeat=replay_metrics(again))
-    runs += [reuse, again]
+    runs += [{"launches": r["launches"]} for r in (reuse, again)]
     del again
 
     plain = frontend_replay(cfg, packed, dev, mods, wl, use_prefix=False,
@@ -3139,7 +3197,7 @@ def frontend_phase(dev, mods):
     emit(phase="frontend", step="replay_no_reuse", arch="gemma3-1b",
          kv_format="q8", **replay_metrics(plain), margin_rule=streams,
          prefix_rows=dict(rows, rid=probe, positions=PREFIX_LEN))
-    runs.append(plain)
+    runs.append({"launches": plain["launches"]})
     plain_sig = plain["report"].deterministic_signature()
     del reuse, plain
 
@@ -3166,24 +3224,34 @@ def frontend_phase(dev, mods):
          slot1_in_window=sorted(window),
          quarantine_warnings=faulted["quarantine_warnings"],
          **replay_metrics(faulted))
-    runs.append(faulted)
+    runs.append({"launches": faulted["launches"]})
     del faulted
 
     # the latency and goodput of record: replays with nothing recorded,
     # reuse and no reuse alternated, each signature equal to its
-    # instrumented twin's
+    # instrumented twin's; each engine, under its Scheduler, is then
+    # dropped with the report that holds them and must be freed at once
+    # (the packed weights are shared and stay)
     for name, use in (("reuse", True), ("no_reuse", False),
                       ("reuse_again", True)):
+        start = torch.cuda.memory_allocated(dev)
         timed = timed_replay(cfg, packed, dev, mods, wl, use_prefix=use)
         check(timed["report"].deterministic_signature() ==
               (sig if use else plain_sig),
               f"the uninstrumented {name} replay differs from its "
               "instrumented twin")
+        gone = [weakref.ref(timed["report"].scheduler.engine)]
+        engine_bytes = torch.cuda.memory_allocated(dev) - start
         emit(phase="frontend", step="replay_timed", run=name,
              arch="gemma3-1b", kv_format="q8", signature_equal=True,
              **replay_metrics(timed))
-        runs.append(timed)
-        del timed
+        runs.append({"launches": timed["launches"]})
+        with collector_off():
+            del timed
+            dropped = check_dropped(f"the front end's engine ({name})",
+                                    gone, start, dev)
+        emit(phase="frontend", step="dropped", run=name,
+             engine_bytes=engine_bytes, **dropped)
     emit(phase="timing", frontend_replays_s=time.monotonic() - t_phase)
 
     for kv in ("q8", "q4"):
@@ -3254,10 +3322,12 @@ def moe_phase(dev, mods):
     from repro_torch.serve.engine import ServeEngine
     arch = MOE_ARCH
     t_phase = time.monotonic()
+    start = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     eng, setup_s = build_engine(arch, dev, kv_len=256)
     setup = {"setup_s": setup_s,
              "setup_peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+    gone = [weakref.ref(eng)]
     wb = eng.weight_bytes()
     check({k: wb[k] for k in WEIGHT_BYTES[arch]} == WEIGHT_BYTES[arch],
           f"{arch} weight_bytes {wb} != {WEIGHT_BYTES[arch]}")
@@ -3271,6 +3341,7 @@ def moe_phase(dev, mods):
             eng = ServeEngine(cfg.replace(kv_format=fmt), eng.params,
                               batch_slots=4, kv_len=256, prefill_chunk=8,
                               device=dev)
+            gone.append(weakref.ref(eng))
             setup = {"engine_s": time.monotonic() - t0}
         done, stats, records, calls = moe_serve(eng, mods, reqs, key)
         cb = eng.cache_bytes()
@@ -3290,7 +3361,11 @@ def moe_phase(dev, mods):
         runs.append(stats)
         emit(phase="timing", moe_run_end_s=time.monotonic() - t_phase,
              kv_format=fmt)
-    del eng
+    with collector_off():
+        del eng
+        dropped = check_dropped(arch, gone, start, dev)
+    emit(phase="moe", step="dropped", arch=arch, engines=len(gone),
+         **dropped)
     release()
     runs.append(moe_cli(mods))
     emit(phase="timing", moe_cli_end_s=time.monotonic() - t_phase)
@@ -3539,7 +3614,7 @@ class AdmissionRecorder:
         try:
             yield self
         finally:
-            self.eng._admit_cross = self.admit
+            del self.eng._admit_cross     # the engine's own method again
 
     def __call__(self, i, req):
         from repro_torch.kernels import ops
@@ -4634,9 +4709,11 @@ FAMILY_DRIVER_THREADS = 1
 KV_AUTO_ARCHS = (WHISPER_ARCH, ZAMBA_ARCH)
 # the card's sides of the holds hand their CPU sides to the worker in this
 # order: the shortest card side first, so that the worker starts at once,
-# then the longest card sides while it works (the phase run alone on one
-# H100 80GB HBM3 and its 8-core host: card sides of 17 (the first, cold),
-# 27, 24, 10 and 7 s, CPU sides of 21, 18, 11, 29 and 15 s)
+# then the longest CPU sides, so that the worker always has the next job
+# queued while the card trains and serves between holds (one run of the
+# script on an NVIDIA H100 80GB HBM3 and its 8-core host: card sides of
+# 1.8, 25.3, 26.0, 10.8 and 6.4 s, CPU sides of 22.8, 91.9, 62.1, 33.5 and
+# 17.0 s, in this order)
 FAMILY_HOLD_ORDER = (WHISPER_ARCH, INTERNVL_ARCH, MOE_ARCH, ZAMBA_ARCH,
                      RWKV_ARCH)
 
@@ -4846,8 +4923,9 @@ def hold_side(hooks, hold, params, batch, plan, holds):
         ce = loop.make_train_step(hold, AdamConfig(), loop.TrainConfig(),
                                   lambda s: 1e-3)
         out["ce"], grads = hooks.spied_step(ce, state, batch)
-        out["grads"] = {n: g.to("cpu", copy=True)
-                        for n, g in flat_with_paths(grads)}
+        # the clipped gradients are the step's own: on the CPU they are
+        # kept as they are, from the card copied to the host
+        out["grads"] = {n: g.to("cpu") for n, g in flat_with_paths(grads)}
         del grads
         lap("ce_step")
     if "qat" in holds:
@@ -5021,16 +5099,8 @@ def card_hold(hooks, arch, layers, dev, mods):
 
 
 def cpu_holds(arch):
-    """The holds the CPU makes for ``arch``: all of them, but for qwen2-moe
-    and internvl2-26b the CE step alone. The QAT step and the Fisher are
-    the same code in every family (``fake_quant_ste`` over the plan, the
-    sampled-label loss and its accumulator), held on the CPU for whisper,
-    rwkv6 and zamba2; at the full width of those two, whose embedding
-    tables hold 0.62 and 1.14 B parameters, they took about 65 and 90 s
-    on the card's 8-core host, more than the script can pay. The card
-    makes them all the same (``card_hold``)."""
-    if arch in (MOE_ARCH, INTERNVL_ARCH):
-        return ("ce",)
+    """The holds the CPU makes for ``arch``: all of them, the KV Fisher
+    where ``--kv-format auto`` is served (``KV_AUTO_ARCHS``)."""
     return ("ce", "qat", "fisher", "kv") if arch in KV_AUTO_ARCHS else (
         "ce", "qat", "fisher")
 
@@ -5173,7 +5243,7 @@ def kv_readings(arch, served_run, card, cpu):
                 cpu_formats=want)
 
 
-def family_train_phase(dev, mods):
+def family_train_phase(dev, mods, also=()):
     """Training, QAT and the weight Fisher at full width for whisper-
     large-v3 and rwkv6-1.6b (full depth), zamba2-2.7b (36 layers),
     qwen2-moe-a2.7b (2) and internvl2-26b (1): (a) 3 CE steps of B = 1,
@@ -5182,14 +5252,16 @@ def family_train_phase(dev, mods):
     gradient within 1e-3 relative L2); (d) one QAT distillation step (KL
     and grad_norm within 1e-3); (e) the Fisher (each tensor's mean within
     5%), its Eq. 5 allocation packed and applied; (f) ``--kv-format auto``
-    for whisper and zamba2. (d) and (e) are held to the CPU for whisper,
-    rwkv6 and zamba2 (``cpu_holds``). The CPU's side of each hold runs on
+    for whisper and zamba2. (c), (d) and (e) are held to the CPU for every
+    family (``cpu_holds``). The CPU's side of each hold runs on
     a worker thread (``FAMILY_DRIVER_THREADS`` of the host's intra-op
     threads left to the card's driver), the costliest first; the card
     hands it the next family's hold only when it has
     nothing queued (host memory holds one running and one waiting), and
-    trains, resumes and serves meanwhile. Returns the launches of its
-    packed runs."""
+    trains, resumes and serves meanwhile, then runs the phases of ``also``
+    ((name, function) pairs: the card's work of other phases, which would
+    otherwise wait for the worker's last holds). Returns the launches of
+    its packed runs and the result of each phase of ``also`` by name."""
     from concurrent.futures import ThreadPoolExecutor
     t_phase = time.monotonic()
     threads = torch.get_num_threads()
@@ -5200,6 +5272,8 @@ def family_train_phase(dev, mods):
     card_work += [("train", arch, layers) for arch, layers, _ in holds]
     card_work += [("kv_auto", arch, None) for arch in KV_AUTO_ARCHS
                   if arch in out]
+    card_work += [("also", name, fn) for name, fn in also]
+    done_also = {}
     timeline = []
     torch.set_num_threads(min(threads, FAMILY_DRIVER_THREADS))
     try:
@@ -5227,6 +5301,8 @@ def family_train_phase(dev, mods):
                         out[arch]["resume"] = moe_resume(dev)
                     elif what == "train":
                         out[arch]["train"] = train_run(arch, layers, dev)
+                    elif what == "also":
+                        done_also[arch] = layers()
                     else:
                         out[arch]["kv_auto"], launches = kv_auto_serve(
                             arch, dev, mods)
@@ -5251,7 +5327,7 @@ def family_train_phase(dev, mods):
         torch.set_num_threads(threads)
     emit(phase="timing", family_train_phase_s=time.monotonic() - t_phase,
          host_peak_rss_bytes=host_peak_rss())
-    return runs
+    return runs, done_also
 
 
 def host_peak_rss():
@@ -5607,11 +5683,12 @@ def main() -> int:
     emit(phase="timing", rwkv6_end_s=time.monotonic() - t_start)
     zamba_runs = recurrent_phase(ZAMBA_ARCH, dev, mods, ("dense", "q8"))
     emit(phase="timing", zamba2_end_s=time.monotonic() - t_start)
-    multidevice_runs = multidevice_phase(dev, mods)
-    emit(phase="timing", multidevice_end_s=time.monotonic() - t_start)
-    example_runs = examples_phase(dev, mods)
-    emit(phase="timing", examples_end_s=time.monotonic() - t_start)
-    family_runs = family_train_phase(dev, mods)
+    # the multidevice and examples phases run on the card while the family
+    # holds' CPU side runs on its worker thread
+    family_runs, also = family_train_phase(dev, mods, also=(
+        ("multidevice", lambda: multidevice_phase(dev, mods)),
+        ("examples", lambda: examples_phase(dev, mods))))
+    multidevice_runs, example_runs = also["multidevice"], also["examples"]
     emit(phase="timing", family_train_end_s=time.monotonic() - t_start)
 
     line = summary(rows, [paper, deepseek, internlm, *gemma, *alloc_runs,

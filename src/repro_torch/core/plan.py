@@ -334,29 +334,60 @@ def _host(x) -> np.ndarray:
         else np.asarray(x)
 
 
+# tensors a host-side pass over a tree (the compressed checkpoint's codec,
+# the Lloyd fits) works on at once, one a thread: its host copies of the
+# tree's tensors number at most this many at any time
+HOST_WINDOW = 4
+
+
+def in_window(fn, items, window: int = HOST_WINDOW):
+    """``fn(x)`` for each of ``items``, yielded in order, with at most
+    ``window`` calls in flight, each on a thread of its own (numpy and
+    torch release the interpreter lock). The next call starts only once
+    the caller has taken the oldest result, so a pass whose ``fn`` makes
+    its own host copy of a tensor holds at most ``window`` of them, and
+    its results are those of one call at a time."""
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(window) as pool:
+        pending = deque()
+        for x in items:
+            if len(pending) == window:
+                yield pending.popleft().result()
+            pending.append(pool.submit(fn, x))
+        while pending:
+            yield pending.popleft().result()
+
+
 def fit_lloyd_plan(params, bits: float, scaling_spec: str = "trms",
                    fisher: Optional[dict] = None) -> QuantisationPlan:
     """Data-fitted Lloyd-Max plan (§2.2), optionally Fisher-weighted: each
     quantisable tensor is normalised on its own device, then its codebook
-    is fitted on the host (``core/lloyd.py``, numpy)."""
+    is fitted on the host (``core/lloyd.py``, numpy), ``HOST_WINDOW``
+    tensors at a time (each fit draws from its own seeded generator: the
+    same codebooks as one at a time)."""
     from .lloyd import lloyd_max
 
     scaling = parse_scaling(scaling_spec)
     fisher_flat = dict(flat_with_paths(fisher)) if fisher is not None else {}
-    formats: Dict[str, Optional[TensorFormat]] = {}
-    for name, x in flat_with_paths(params):
-        if not quantisable(name, x):
-            formats[name] = None
-            continue
+    init = "uniform" if scaling.statistic in ("absmax", "signmax") \
+        else "kmeans++"
+
+    def fit(item):
+        name, x = item
         with torch.no_grad():
             xb, _, unblock = scaling.normalise(x.float())
             xn = _host(unblock(xb)).reshape(-1)  # normalised, padding trimmed
         w = fisher_flat.get(name)
-        init = "uniform" if scaling.statistic in ("absmax", "signmax") \
-            else "kmeans++"
         elem = lloyd_max(xn, bits,
                          weights=None if w is None else _host(w).reshape(-1),
                          init=init)
-        formats[name] = TensorFormat(element=elem, scaling=scaling,
-                                     name=f"{scaling_spec}:lloyd{bits:g}")
-    return QuantisationPlan(formats)
+        return TensorFormat(element=elem, scaling=scaling,
+                            name=f"{scaling_spec}:lloyd{bits:g}")
+
+    leaves = flat_with_paths(params)
+    fitted = [(name, x) for name, x in leaves if quantisable(name, x)]
+    formats: Dict[str, Optional[TensorFormat]] = dict(
+        zip((name for name, _ in fitted), in_window(fit, fitted)))
+    return QuantisationPlan({name: formats.get(name) for name, _ in leaves})

@@ -31,9 +31,13 @@ exact. ``straggler`` records every step's wall time.
 The front end (``serve.scheduler``) wires into ``admission_hook`` (called
 before every slot-fill pass, including the refill at the end of each
 ``step_once``) and ``on_admit`` (called once a slot is seated, where it
-forks pooled shared-prefix KV into the slot). The device step is the
-instance attribute ``_step`` (the family's ``decode_step`` bound to the
-config), which the fault injectors wrap.
+forks pooled shared-prefix KV into the slot); it holds them without
+keeping itself alive. The device step is the method ``_step`` (the
+family's ``decode_step`` bound late to ``fam`` and the config), which the
+fault injectors wrap on the instance through ``weak_method``. Nothing the
+engine holds refers back to it, so a dropped engine, with its front end
+and its drills, gives back its device memory at once, with no cycle
+collector.
 
 Recurrent families (rwkv6, zamba2) carry per-slot state that the reset
 mask wipes like KV rows; rwkv6 has no KV cache at all (no ``cache_spec``).
@@ -51,6 +55,7 @@ from __future__ import annotations
 
 import time
 import warnings
+import weakref
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -220,15 +225,8 @@ class ServeEngine:
         self.admission_hook = None
         self.on_admit = None
         self.straggler = StragglerMonitor()
-        # the device step; late-bound to self.fam so a replaced family (a
-        # recording wrapper) is honoured, and itself replaceable per
-        # instance (serve.faults wraps it)
-        self._step = lambda p, s, b: self.fam.decode_step(p, s, b, self.cfg)
-        # per-slot cross-attention prefill (encoder-decoder families), bound
-        # late like _step; the text-only zero template is built once
-        self._cross_prefill = (
-            (lambda p, f: self.fam.cross_prefill(p, f, self.cfg))
-            if self.fam.cross_prefill is not None else None)
+        # the text-only cross-attention template (encoder-decoder
+        # families), built once
         self._zero_cross = None
         self._state = self._zero_state()
         self._slots: List[Optional[Generation]] = [None] * batch_slots
@@ -262,6 +260,17 @@ class ServeEngine:
         else:
             params = plan.dequantise(qparams)
         return cls(cfg, params, **kw)
+
+    # The device step and the per-slot cross-attention prefill are methods
+    # bound late to ``self.fam``, so a replaced family (a recording wrapper)
+    # is honoured. Either may be replaced on one instance (``serve.faults``
+    # wraps ``_step``) by a wrapper that reaches the engine through
+    # ``weak_method``, so a dropped engine is freed at once.
+    def _step(self, params, state, batch):
+        return self.fam.decode_step(params, state, batch, self.cfg)
+
+    def _cross_prefill(self, params, frames):
+        return self.fam.cross_prefill(params, frames, self.cfg)
 
     def _zero_state(self):
         with torch.inference_mode():
@@ -555,7 +564,7 @@ class ServeEngine:
                 self._slot_pos[i] = 0
                 self._slot_steps[i] = 0
                 self._needs_reset[i] = True
-                if self._cross_prefill is not None:
+                if self.fam.cross_prefill is not None:
                     self._admit_cross(i, req)
                 # a scheduler forks pooled prefix KV into the slot here (it
                 # may move _slot_pos past the prefix and clear the reset bit)
@@ -604,6 +613,18 @@ class ServeEngine:
             g.t_done = time.monotonic()
             finished.append(g)
             self._slots[i] = None
+
+
+def weak_method(engine, name: str):
+    """What ``engine.<name>`` calls now, holding no strong reference to
+    ``engine``: an override set on the instance as it is, else the class's
+    method through a weak reference. A wrapper around it, set back on the
+    instance, leaves no reference cycle (``serve.faults``)."""
+    override = vars(engine).get(name)
+    if override is not None:
+        return override
+    ref, method = weakref.ref(engine), getattr(type(engine), name)
+    return lambda *args: method(ref(), *args)
 
 
 def greedy_generate(cfg: ModelConfig, params, prompt: np.ndarray,

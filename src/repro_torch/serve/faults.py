@@ -25,7 +25,9 @@ here, so the recovery paths are drilled, not assumed (the reference's
 
 Injectors that wrap engine internals (``_step`` / ``_fill_slots``) patch the
 *instance*, never the class, and return their counter state so callers can
-assert the fault actually fired. Step indices count device steps (prefill
+assert the fault actually fired. A wrapper reaches its engine only through
+a weak reference (``serve.engine.weak_method``), so a drilled engine is
+freed as soon as it is dropped. Step indices count device steps (prefill
 chunks included) from the moment of injection. Tensor paths are the
 reference's ``keystr`` strings (``"['layers']['wq']"``).
 """
@@ -33,10 +35,12 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 from typing import Iterable, List
 
 from repro_torch.core.plan import flat_with_paths, map_with_paths
 from repro_torch.core.tensor_format import PackedTensor, QuantisedTensor
+from repro_torch.serve.engine import weak_method
 
 
 def _is_q(x) -> bool:
@@ -110,7 +114,7 @@ def inject_nan_logits(engine, slot: int, at_step: int, n_steps: int = 1):
     device logits before the host copy (cloned, so the step's own output is
     untouched). Returns the counter dict (``step``: calls seen,
     ``injected``: faults delivered)."""
-    inner = engine._step
+    inner = weak_method(engine, "_step")
     ctr = {"step": 0, "injected": 0}
 
     def wrapped(p, s, b):
@@ -134,7 +138,7 @@ def inject_step_failures(engine, steps: Iterable[int],
     *before* the raise, so a retry or fallback re-execution lands on the
     next index and succeeds — the transient-fault model. Returns the counter
     dict."""
-    inner = engine._step
+    inner = weak_method(engine, "_step")
     fail_at = set(steps)
     ctr = {"step": 0, "raised": 0}
 
@@ -154,7 +158,7 @@ def inject_slow_steps(engine, steps: Iterable[int], delay_s: float):
     """Sleep ``delay_s`` before the device step at each index in ``steps``
     (counted from injection) — models a stalling device/host. Returns the
     counter dict (``slowed``: stalls delivered)."""
-    inner = engine._step
+    inner = weak_method(engine, "_step")
     slow_at = set(steps)
     ctr = {"step": 0, "slowed": 0}
 
@@ -175,14 +179,14 @@ def drop_admissions(engine, rids: Iterable[int]) -> List:
     admission pass — models a lost submission. Returns the (live) list the
     dropped requests accumulate into."""
     lose = set(rids)
-    inner = engine._fill_slots
+    ref, inner = weakref.ref(engine), weak_method(engine, "_fill_slots")
     dropped: List = []
 
     def wrapped():
-        keep = []
-        for r in engine._queue:
+        queue, keep = ref()._queue, []
+        for r in queue:
             (dropped if r.rid in lose else keep).append(r)
-        engine._queue[:] = keep
+        queue[:] = keep
         inner()
 
     engine._fill_slots = wrapped
@@ -195,16 +199,17 @@ def duplicate_admissions(engine, rids: Iterable[int]):
     duplicate-rid warning fires at submit, this drills the post-queue
     path). Returns the state dict (``duplicated``: copies made)."""
     twice = set(rids)
-    inner = engine._fill_slots
+    ref, inner = weakref.ref(engine), weak_method(engine, "_fill_slots")
     state = {"armed": True, "duplicated": 0}
 
     def wrapped():
         if state["armed"]:
             state["armed"] = False
+            queue = ref()._queue
             dups = [dataclasses.replace(r, prompt=list(r.prompt))
-                    for r in engine._queue if r.rid in twice]
+                    for r in queue if r.rid in twice]
             state["duplicated"] = len(dups)
-            engine._queue.extend(dups)
+            queue.extend(dups)
         inner()
 
     engine._fill_slots = wrapped

@@ -26,6 +26,11 @@ this layer owns *when work enters them*:
   recomputing the prefix (chunked prefill is exact and slot rows are
   independent).
 
+**Lifetime**: a handle keeps its scheduler, and the scheduler its engine;
+the engine's hooks and the scheduler's record of each request hold theirs
+weakly (a request whose handle no caller keeps is served all the same). A
+dropped scheduler and its engine go together, with no cycle collector.
+
 **Virtual clock**: scheduling decisions follow the engine step counter
 (``vt = steps_total * step_dt`` plus idle fast-forward), never the wall
 clock, so a replayed workload (``serve.traffic``) admits in the same order
@@ -35,6 +40,7 @@ from __future__ import annotations
 
 import time
 import warnings
+import weakref
 from dataclasses import dataclass
 from typing import Dict, List, Optional
 
@@ -258,6 +264,18 @@ class StreamHandle:
         return self.generation
 
 
+def _weak_hook(method):
+    """``method`` (an engine hook) called through a weak reference to its
+    object, a no-op once that is gone: the hook keeps nothing alive."""
+    ref = weakref.WeakMethod(method)
+
+    def hook(*args):
+        live = ref()
+        if live is not None:
+            live(*args)
+    return hook
+
+
 @dataclass
 class _Submitted:
     seq: int
@@ -265,7 +283,7 @@ class _Submitted:
     priority: float
     prefix: Optional[str]
     at: float
-    handle: StreamHandle
+    handle: "weakref.ref[StreamHandle]"
     arrive_step: int = -1       # engine step at arrival (aging baseline)
     t_submit: float = 0.0
     released: bool = False
@@ -300,7 +318,6 @@ class Scheduler:
         self.aging = aging
         self.step_dt = step_dt
         self.pool = PrefixPool(engine, capacity=prefix_capacity)
-        self.handles: Dict[int, StreamHandle] = {}
         self.queue_trace: List[QueueSample] = []
         self.stats = {"forks": 0, "forked_tokens": 0, "released": 0,
                       "prefix_recompute": 0}
@@ -311,8 +328,8 @@ class Scheduler:
         self._vt_skip = 0.0                    # idle fast-forward offset
         self._drained: List[Generation] = []   # stream()-mode sink
         self._warned_no_fork = False
-        engine.admission_hook = self._release
-        engine.on_admit = self._on_admit
+        engine.admission_hook = _weak_hook(self._release)
+        engine.on_admit = _weak_hook(self._on_admit)
 
     # ------------------------------------------------------------------ api
     def submit(self, prompt: List[int], *, max_new_tokens: int = 32,
@@ -334,7 +351,7 @@ class Scheduler:
         mid-replay."""
         if rid is None:
             rid = self._seq
-        if rid in self.handles:
+        if rid in self._by_rid:
             warnings.warn(
                 f"Scheduler.submit: rid={rid} resubmitted — the new handle "
                 "replaces the old one", RuntimeWarning, stacklevel=2)
@@ -352,10 +369,10 @@ class Scheduler:
         handle = StreamHandle(self, rid, priority, prefix,
                               0.0 if at is None else at)
         sub = _Submitted(seq=self._seq, req=req, priority=priority,
-                         prefix=prefix, at=handle.at, handle=handle,
+                         prefix=prefix, at=handle.at,
+                         handle=weakref.ref(handle),
                          t_submit=time.monotonic())
         self._seq += 1
-        self.handles[rid] = handle
         self._by_rid[rid] = sub
         if at is None or at <= self._vt():
             sub.arrive_step = self.engine.steps_total
@@ -427,7 +444,9 @@ class Scheduler:
         sub = self._by_rid.get(req.rid)
         if sub is None or sub.req is not req:
             return                      # not ours (direct engine.submit)
-        sub.handle.generation = gen
+        handle = sub.handle()
+        if handle is not None:
+            handle.generation = gen
         if sub.prefix is None:
             return
         if not self.pool.fork_capable:
@@ -442,7 +461,8 @@ class Scheduler:
             return
         entry = self.pool.ensure(sub.prefix)
         forked = self.pool.fork(slot, entry, len(req.prompt))
-        sub.handle.forked_tokens = forked
+        if handle is not None:
+            handle.forked_tokens = forked
         if forked:
             self.stats["forks"] += 1
             self.stats["forked_tokens"] += forked

@@ -12,7 +12,10 @@ Format per tensor (inside one .npz, keys are tensor paths with ``/`` → ``_``):
     <name>.__symbols   symbol values (grid indices, offset-shifted)
     <name>.__meta      [n_symbols_total, delta*2^40, lo, shape...]
 Tensors the default policy does not quantise (``plan.quantisable``) are
-stored raw in f32. The codec runs on the host (numpy and Python).
+stored raw in f32. The codec runs on the host (numpy and Python),
+``plan.HOST_WINDOW`` tensors at a time, one a thread, each copied to the
+host by its own thread (``plan.in_window``): the same bytes as one tensor
+at a time, with at most that many tensors' host copies alive at once.
 """
 from __future__ import annotations
 
@@ -26,10 +29,24 @@ import torch
 from repro_torch.core.compress import (HuffmanCode, build_huffman,
                                        fit_grid_delta)
 from repro_torch.core.element import uniform_grid
-from repro_torch.core.plan import (_flat_with_paths, map_with_paths,
-                                   quantisable)
+from repro_torch.core.plan import (_flat_with_paths, flat_with_paths,
+                                   in_window, map_with_paths, quantisable)
 
 _DELTA_SCALE = 2.0 ** 40
+
+
+def _encode(x, target_bits: float):
+    """One tensor's grid step, lowest code, Huffman code, histogram and
+    payload, from a host f32 copy made here and dropped on return."""
+    xnp = _host_f32(x)
+    delta = fit_grid_delta(xnp, target_bits=target_bits)
+    codes = uniform_grid(delta).quantise(torch.from_numpy(xnp)).numpy()
+    lo = int(codes.min())
+    sym = (codes - lo).astype(np.int64).reshape(-1)
+    hist = np.bincount(sym)
+    hc = build_huffman(hist)
+    payload, _ = hc.encode(sym)
+    return delta, lo, sym.size, hist, hc, payload
 
 
 def _host_f32(x) -> np.ndarray:
@@ -52,28 +69,24 @@ def save_compressed_params(ckpt_dir: str, params, target_bits: float = 4.0,
     os.makedirs(tmp)
     flat: dict = {}
     meta_rows = []
-    for name, x in _flat_with_paths(params):
+    leaves = _flat_with_paths(params)
+    coded = in_window(lambda x: _encode(x, target_bits),
+                      [x for name, x in leaves if quantisable(name, x)])
+    for name, x in leaves:
         key = name.replace("/", "_")
-        xnp = _host_f32(x)
-        if not quantisable(name, xnp):
-            flat[key] = xnp  # small tensors stored raw
+        if not quantisable(name, x):
+            flat[key] = _host_f32(x)  # small tensors stored raw
             continue
-        delta = fit_grid_delta(xnp, target_bits=target_bits)
-        codes = uniform_grid(delta).quantise(torch.from_numpy(xnp)).numpy()
-        lo = int(codes.min())
-        sym = (codes - lo).astype(np.int64).reshape(-1)
-        hist = np.bincount(sym)
-        hc = build_huffman(hist)
-        payload, _ = hc.encode(sym)
+        delta, lo, size, hist, hc, payload = next(coded)
         flat[key + ".__payload"] = np.frombuffer(payload, np.uint8)
         symbols = np.asarray(sorted(hc.lengths), np.int64)
         flat[key + ".__symbols"] = symbols
         flat[key + ".__lengths"] = np.asarray(
             [hc.lengths[s] for s in symbols], np.int64)
         flat[key + ".__meta"] = np.asarray(
-            [sym.size, int(delta * _DELTA_SCALE), lo, *xnp.shape], np.int64)
+            [size, int(delta * _DELTA_SCALE), lo, *x.shape], np.int64)
         meta_rows.append(dict(tensor=name, bits=hc.mean_bits(hist),
-                              numel=int(sym.size)))
+                              numel=int(size)))
     np.savez(os.path.join(tmp, "arrays.npz"), **flat)
     total_bits = sum(r["bits"] * r["numel"] for r in meta_rows)
     total_n = sum(r["numel"] for r in meta_rows)
@@ -114,19 +127,20 @@ def load_compressed_params(path: str, template) -> dict:
         else:
             by_key[k] = npz[k]
 
-    def one(name, x):
-        entry = by_key[name.replace("/", "_")]
+    def decode(entry):
         if isinstance(entry, np.ndarray):
-            vals = entry
-        else:
-            meta = entry["meta"]
-            n, delta_q, lo = int(meta[0]), int(meta[1]), int(meta[2])
-            shape = tuple(int(d) for d in meta[3:])
-            hc = _canonical_code(entry["symbols"], entry["lengths"])
-            sym = hc.decode(entry["payload"].tobytes(), n)
-            vals = ((sym + lo).astype(np.float32)
-                    * (delta_q / _DELTA_SCALE)).reshape(shape)
-        return torch.from_numpy(np.ascontiguousarray(vals)).to(
-            getattr(x, "device", "cpu"))
+            return entry
+        meta = entry["meta"]
+        n, delta_q, lo = int(meta[0]), int(meta[1]), int(meta[2])
+        shape = tuple(int(d) for d in meta[3:])
+        hc = _canonical_code(entry["symbols"], entry["lengths"])
+        sym = hc.decode(entry["payload"].tobytes(), n)
+        return ((sym + lo).astype(np.float32)
+                * (delta_q / _DELTA_SCALE)).reshape(shape)
 
-    return map_with_paths(one, template)
+    leaves = flat_with_paths(template)
+    decoded = in_window(lambda name: decode(by_key[name.replace("/", "_")]),
+                        [name for name, _ in leaves])
+    moved = {name: torch.from_numpy(np.ascontiguousarray(next(decoded))).to(
+        getattr(x, "device", "cpu")) for name, x in leaves}
+    return map_with_paths(lambda name, _: moved[name], template)

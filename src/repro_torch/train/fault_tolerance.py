@@ -30,7 +30,10 @@ def retry(fn: Callable, max_attempts: int = 3, backoff_s: float = 0.0,
     safe) and the serving engine (``ServeEngine(step_retries=N)`` re-runs a
     failed device step before degrading). ``max_attempts`` must be ≥ 1 —
     zero attempts would raise nothing at all. After the last attempt the
-    final exception is re-raised with its original traceback intact."""
+    final exception is re-raised with its original traceback intact. No
+    local outlives its except block, so a caught exception's traceback
+    does not keep this frame, and what ``fn`` refers to, alive in a
+    cycle."""
     if max_attempts < 1:
         raise ValueError(
             f"retry: max_attempts must be >= 1, got {max_attempts} "
@@ -39,12 +42,12 @@ def retry(fn: Callable, max_attempts: int = 3, backoff_s: float = 0.0,
         try:
             return fn()
         except (RuntimeError, ValueError, OSError) as e:  # transient classes
-            last = e
             if on_error:
                 on_error(attempt, e)
+            if attempt == max_attempts - 1:
+                raise
             if backoff_s:
                 time.sleep(backoff_s * (2 ** attempt))
-    raise last.with_traceback(last.__traceback__)
 
 
 @dataclass

@@ -8,8 +8,12 @@ For the same weights the two packages write the same npz arrays
 (``__payload``, ``__lengths``, ``__symbols``, ``__meta`` and the raw
 tensors) and the same ``manifest.json``, and a checkpoint written by either
 loads in the other to equal arrays."""
+import functools
 import json
 import os
+import threading
+import time
+import weakref
 
 import numpy as np
 import pytest
@@ -26,7 +30,8 @@ from repro.train import compressed_ckpt as jckpt
 
 from repro_torch import configs
 from repro_torch.core import distributions as dist
-from repro_torch.core.plan import _flat_with_paths, map_with_paths, path_str
+from repro_torch.core.plan import (HOST_WINDOW, _flat_with_paths, in_window,
+                                   map_with_paths, path_str)
 from repro_torch.models import api as mapi
 from repro_torch.models import transformer
 from repro_torch.train import compressed_ckpt as ckpt
@@ -168,6 +173,69 @@ class TestCompressedCheckpoint:
         assert sorted(got) == sorted(want)
         for k in got:
             np.testing.assert_array_equal(got[k], want[k], k)
+
+
+@pytest.mark.parametrize("window", [1, 3])
+def test_in_window_yields_in_order_with_a_bounded_flight(window):
+    """``plan.in_window`` yields ``fn``'s results in the items' order and
+    never has more than ``window`` calls running or finished but not yet
+    taken."""
+    lock, held, most = threading.Lock(), [0], [0]
+
+    def fn(i):
+        with lock:
+            held[0] += 1
+            most[0] = max(most[0], held[0])
+        time.sleep(0.002)
+        return i * i
+
+    got = []
+    for r in in_window(fn, range(17), window):
+        got.append(r)
+        with lock:
+            held[0] -= 1
+    assert got == [i * i for i in range(17)]
+    assert most[0] <= window
+
+
+def test_codec_holds_at_most_a_window_of_host_copies(tmp_path, monkeypatch):
+    """The codec's threads copy each tensor to the host themselves: at no
+    time are more than ``plan.HOST_WINDOW`` host copies alive, and the
+    file is the one written a tensor at a time."""
+    rng = np.random.default_rng(4)
+    params = {f"w{i:02d}": torch.from_numpy(
+        rng.standard_normal((64, 128)).astype(np.float32))
+        for i in range(3 * HOST_WINDOW + 1)}
+    host_f32, lock, live, most = ckpt._host_f32, threading.Lock(), [0], [0]
+
+    def dropped():
+        with lock:
+            live[0] -= 1
+
+    def counted(x):
+        out = host_f32(x).copy()
+        with lock:
+            live[0] += 1
+            most[0] = max(most[0], live[0])
+        weakref.finalize(out, dropped)
+        time.sleep(0.002)
+        return out
+
+    monkeypatch.setattr(ckpt, "_host_f32", counted)
+    got = npz_arrays(ckpt.save_compressed_params(str(tmp_path / "w"),
+                                                 params))
+    assert 1 <= most[0] <= HOST_WINDOW and live[0] == 0
+    monkeypatch.setattr(ckpt, "in_window", functools.partial(in_window,
+                                                             window=1))
+    want = npz_arrays(ckpt.save_compressed_params(str(tmp_path / "one"),
+                                                  params))
+    assert sorted(got) == sorted(want)
+    for k in got:
+        np.testing.assert_array_equal(got[k], want[k], k)
+    back = ckpt.load_compressed_params(str(tmp_path / "w" / "cstep_00000000"),
+                                       params)
+    for k, x in params.items():
+        assert back[k].shape == x.shape and back[k].dtype == torch.float32
 
 
 def test_constant_tensor_clips_as_in_the_reference(tmp_path):

@@ -125,11 +125,25 @@ def test_ce_step_loss_and_grad_norm_match(arch):
     assert float(r["m"]["grad_norm"]) > 0
 
 
-def test_zamba2_qat_distill_step_matches():
-    """babsmax64:int2 fake-quant with the STE over zamba2's Mamba-2 and
-    shared-block matrices: the KL to the teacher and its gradient norm,
-    and the codes the student's forward rounds to, bit for bit."""
-    r = step_pair("zamba2-2.7b", plan_spec="babsmax64:int2", distill=True)
+# planned tensors each family's QAT case must cover: zamba2's Mamba-2 and
+# shared-block matrices, qwen2-moe's expert stacks (a lead dim of experts)
+# and embedding tables, internvl's vision projection and tables
+QAT_COVERS = {
+    "zamba2-2.7b": {"['mamba']['in_proj']", "['shared']['wq']"},
+    "qwen2-moe-a2.7b": {"['layers']['we_gate']", "['layers']['we_down']",
+                        "['embed']", "['unembed']"},
+    "internvl2-26b": {"['vis_proj1']", "['layers']['w_up']", "['embed']",
+                      "['unembed']"},
+}
+
+
+@pytest.mark.parametrize("arch", list(QAT_COVERS))
+def test_zamba2_qat_distill_step_matches(arch):
+    """babsmax64:int2 fake-quant with the STE over the family's planned
+    matrices (``QAT_COVERS``; the test began with zamba2 and now holds the
+    MoE and VLM families too): the KL to the teacher and its gradient
+    norm, and the codes the student's forward rounds to, bit for bit."""
+    r = step_pair(arch, plan_spec="babsmax64:int2", distill=True)
     kl, jkl = float(r["m"]["loss"]), float(r["jm"]["loss"])
     assert kl > 1e-4
     np.testing.assert_allclose(kl, jkl, rtol=1e-4, atol=1e-7)
@@ -141,7 +155,7 @@ def test_zamba2_qat_distill_step_matches():
               jax.jit(r["jplan"].quantise)(r["jparams"]),
               is_leaf=lambda x: hasattr(x, "codes"))[0]}
     names = [n for n, f in r["plan"].formats.items() if f is not None]
-    assert {"['mamba']['in_proj']", "['shared']['wq']"} <= set(names)
+    assert QAT_COVERS[arch] <= set(names)
     for name in names:
         np.testing.assert_array_equal(q[name].codes.numpy(),
                                       np.asarray(jq[name].codes),

@@ -41,6 +41,9 @@ from repro_torch.models.api import get_family
 from repro_torch.serve.engine import alloc_decode_state
 
 ARCHS = ["paper-100m", "gemma3-1b"]
+# the weight Fisher is also held for the MoE family (routed expert stacks)
+# and the VLM (internvl: the visual prefix's logits get labels too)
+FISHER_ARCHS = ARCHS + ["qwen2-moe-a2.7b", "internvl2-26b"]
 T = 24                   # above gemma3-1b smoke's window of 16
 
 
@@ -54,7 +57,7 @@ def numpy_params(cfg, seed=0):
         std = 0.5 if "embed" in path else \
             1 / np.sqrt(spec.numel // spec.shape[-1])
         return (rng.standard_normal(spec.shape) * std).astype(np.float32)
-    return map_with_paths(make, transformer.param_specs(cfg))
+    return map_with_paths(make, get_family(cfg.family).param_specs(cfg))
 
 
 def cfgs(arch, **kw):
@@ -337,35 +340,49 @@ def batches_of(cfg, n_batches, bsz, seed=13):
             for _ in range(n_batches)]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", FISHER_ARCHS)
 def test_diag_fisher_with_the_same_labels_per_sequence(arch, monkeypatch):
     """Two batches of two sequences, each with its own fixed labels: the
     port's estimator (remat full, so the rematerialised backward runs)
     against a test-side ``jax.grad`` over the reference ``apply``: each
-    leaf within 1e-5 of its largest value."""
+    leaf within 1e-5 of its largest value. internvl's sequences carry
+    image patches, and its visual prefix's positions labels too."""
     cfg, jcfg = cfgs(arch, remat="full")
     npp = numpy_params(cfg)
     toks = batches_of(cfg, 2, 2)
     rng = np.random.default_rng(14)
-    labels = [rng.integers(0, cfg.vocab, (1, T)) for _ in range(4)]
+    n_pos = T + cfg.n_vis_tokens
+    labels = [rng.integers(0, cfg.vocab, (1, n_pos)) for _ in range(4)]
+    batches = [{"tokens": x} for x in toks]
+    if cfg.family == "internvl":
+        from repro_torch.models.internvl import D_VIT
+        vis = np.random.default_rng(17)
+        for b in batches:
+            b["vis"] = vis.standard_normal(
+                (2, cfg.n_vis_tokens, D_VIT)).astype(np.float32)
     jparams = jax.tree.map(jnp.asarray, npp)
+    japply = japi.get_family(jcfg.family).apply
 
-    def sq_grad(tok, y):
+    def sq_grad(seq, y):
         def loss(p):
-            logits = jt.apply(p, {"tokens": jnp.asarray(tok)[None]}, jcfg)
+            logits = japply(p, {k: jnp.asarray(v)[None]
+                                for k, v in seq.items()}, jcfg)
             logp = jax.nn.log_softmax(logits, axis=-1)
             return -jnp.sum(jnp.take_along_axis(
                 logp, jnp.asarray(y)[..., None], axis=-1))
         return jax.tree.map(lambda g: np.square(np.asarray(g, np.float64)),
                             jax.grad(loss)(jparams))
-    seqs = [tok[b] for tok in toks for b in range(2)]
+    seqs = [{k: v[b] for k, v in batch.items()} for batch in batches
+            for b in range(2)]
     sums = [sq_grad(s, y) for s, y in zip(seqs, labels)]
     want = jax.tree.map(lambda *g: sum(g) / (2 * 2 * T), *sums)
 
     queue = fixed_labels(monkeypatch, labels)
+    apply = get_family(cfg.family).apply
     got = fisher.estimate_diag_fisher(
-        lambda p, b: transformer.apply(p, b, cfg),
-        params_from_numpy(npp, "cpu"), [{"tokens": t(x)} for x in toks],
+        lambda p, b: apply(p, b, cfg),
+        params_from_numpy(npp, "cpu"),
+        [{k: t(v) for k, v in batch.items()} for batch in batches],
         torch.Generator().manual_seed(0))
     assert not queue
     want = dict(flat_with_paths(want))

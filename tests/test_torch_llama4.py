@@ -87,18 +87,22 @@ def greedy(eng, vocab, max_new=5):
     (48, dict(total=57_268_101_888, codes=53_882_716_160,
               scales=3_367_669_760, codebooks=768, dense=17_715_200)),
     (1, dict(total=2_269_348_608, codes=2_135_490_560, scales=133_468_160,
-             codebooks=768, dense=389_120))])
+             codebooks=768, dense=389_120)),
+    (2, dict(total=3_439_534_848, codes=3_236_495_360, scales=202_280_960,
+             codebooks=768, dense=757_760))])
 def test_full_weight_bytes_equal_the_reference(layers, want):
-    """llama4 full at 48 layers and at the card's 1-layer hold: 12 packed
-    tensors (the router dense), the reference's count, which
-    ``chip_smoke.py`` holds its engines to."""
+    """llama4 full at 48 layers and at 1 and 2 layers (the card's hold
+    takes ``LLAMA4_HOLD_LAYERS``): 12 packed tensors (the router dense),
+    the reference's count, which ``chip_smoke.py`` holds its engines
+    to."""
     cfg = configs.get_config(ARCH, "full").replace(n_layers=layers)
     got = meta_weight_bytes(cfg)
     assert got == reference_full_bytes(
         jconfigs.get_config(ARCH, "full").replace(n_layers=layers))
     assert got == want
-    key = ARCH if layers == 48 else ARCH + " hold"
-    assert chip_smoke.WEIGHT_BYTES[key] == want
+    if layers in (48, chip_smoke.LLAMA4_HOLD_LAYERS):
+        key = ARCH if layers == 48 else ARCH + " hold"
+        assert chip_smoke.WEIGHT_BYTES[key] == want
 
 
 @pytest.mark.parametrize("fmt,kv", [("", 207_618_048), ("q8", 107_053_056)])
@@ -273,7 +277,7 @@ def test_chip_smoke_constants_agree_with_the_config():
                                    "block_quant": L,
                                    "decode_attention_quant": L}
     H = chip_smoke.LLAMA4_HOLD_LAYERS
-    assert H == 1
+    assert H == 2
     assert steps[ARCH + " hold"] == {"dequant_matmul": per_layer * H + 1}
     assert chip_smoke.LLAMA4_LEAD_LAUNCHES == lead * L
     d, f = cfg.d_model, cfg.d_expert
